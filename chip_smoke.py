@@ -1,0 +1,488 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py            # everything, as below
+    python3 chip_smoke.py --phase kernels     # or: main, profile
+
+Phases, each of which fails the run with a non-zero exit code:
+
+1. print the card (name, power limit) and build the CUDA kernels from the
+   sources under ``src/repro_torch/kernels/csrc`` (time printed as set-up);
+2. kernels: flash attention (prefill) and decode attention against their
+   plain PyTorch versions on the card, bf16 (tolerance 2e-2) and fp32
+   (tolerance 1e-4: the kernels sum in another order than ATen and use
+   expf/tanhf, on values of order 1), at the serving path's shapes and at
+   awkward ones. The absolute part of a tolerance is scaled by the largest
+   reference value where that is below 1 (a decode output averaged over
+   hundreds of slots is of order 0.1); each kernel is timed (CUDA events, L2 flushed before every
+   launch, median) beside its plain version, one library call and its
+   roofline bound;
+3. main path at full width: ``repro_torch.launch.serve`` with phi4-mini-3.8b
+   in bf16 — gateway start-up, a short request trace with a node disconnect
+   in the middle, every share run through the engine of its accuracy level
+   (batch 8, prompt 512, 16 decode steps, max_len 1024). Launch counts of
+   both kernels are set to 0 before and checked after;
+4. the ``kernels`` JSON line, the card line, and the final JSON line.
+
+Needs a CUDA device: without one it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as dec_k  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
+
+# NVIDIA H100 SXM data sheet, dense rates
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BW = 3.35e12
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+LOGITS_TOL = 2e-2       # prefill logits, kernels on against kernels off, bf16
+
+# serving path shapes (phi4-mini-3.8b, batch 8, prompt 512, max_len 1024)
+B, H, KV, D, PROMPT, MAX_LEN = 8, 24, 8, 128, 512, 1024
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+class Timer:
+    """Median time of one call in ms: CUDA events around each launch, after
+    a warm-up, with the 50 MB L2 flushed before every timed launch (on the
+    serving path every layer brings its own K and V, so L2 is cold)."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
+
+    def __call__(self, fn, warmup: int = 3, iters: int = 15) -> float:
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1))
+        return statistics.median(times)
+
+
+def _rand(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).to(dtype)
+
+
+def _check(name, got, want, tol):
+    """Max abs error, after holding every element to ``atol + tol * |want|``.
+    ``atol`` is ``tol`` for references of order 1 and ``tol * max|want|`` for
+    smaller ones, so that a small output is not held to a limit of its own
+    size."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    err = (got - want).abs().max().item()
+    atol = tol * min(1.0, want.abs().max().item())
+    bad = ((got - want).abs() > atol + tol * want.abs()).sum().item()
+    if bad:
+        raise AssertionError(f"{name}: {bad} elements beyond atol={atol:.3e}, "
+                             f"rtol={tol}, max abs err {err}")
+    return err
+
+
+# ----------------------------------------------------------------------
+# K1
+def _visible_pairs(sq, s, causal, window, q_offset):
+    rows = q_offset + np.arange(sq)[:, None]
+    cols = np.arange(s)[None, :]
+    m = np.ones((sq, s), bool)
+    if causal:
+        m &= cols <= rows
+    if window is not None:
+        m &= cols > rows - window
+    return int(m.sum())
+
+
+def flash_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, dtype, b, h, kv, sq, s, d, window, softcap, q_offset, causal
+    return [
+        ("main bf16", bf, B, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
+        ("main fp32 b2", f32, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
+        ("smoke d16 s32 bf16", bf, 2, 4, 2, 32, 32, 16, None, 0.0, 0, True),
+        ("smoke d16 s32 fp32", f32, 2, 4, 2, 32, 32, 16, None, 0.0, 0, True),
+        ("d16 window 8", f32, 2, 4, 2, 40, 40, 16, 8, 0.0, 0, True),
+        ("d256 softcap50 bf16", bf, 1, 8, 4, 256, 256, 256, None, 50.0, 0, True),
+        ("d256 window64 fp32", f32, 1, 8, 4, 200, 200, 256, 64, 0.0, 0, True),
+        ("ragged s192 window64 bf16", bf, 1, 4, 1, 192, 192, 128, 64, 0.0, 0, True),
+        ("ragged s192 window64 fp32", f32, 1, 4, 1, 192, 192, 128, 64, 0.0, 0, True),
+        ("softcap30 d64 bf16", bf, 2, 8, 2, 256, 256, 64, None, 30.0, 0, True),
+        ("softcap30 d64 fp32", f32, 2, 8, 2, 256, 256, 64, None, 30.0, 0, True),
+        ("q_offset 128 fp32", f32, 2, 4, 4, 128, 256, 64, None, 0.0, 128, True),
+        ("q_offset 100 window 70 bf16", bf, 2, 4, 2, 90, 190, 128, 70, 0.0, 100, True),
+        ("non-causal ragged fp32", f32, 1, 4, 4, 100, 77, 64, None, 0.0, 0, False),
+    ]
+
+
+def check_flash(device, timer):
+    gen = torch.Generator(device=device).manual_seed(1)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for (name, dt, b, h, kv, sq, s, d, window, cap, off, causal) in flash_cases():
+        # model layout (B,S,H,D), handed over as transposed views like ops does
+        q = _rand(gen, (b, sq, h, d), dt, device).transpose(1, 2)
+        k = _rand(gen, (b, s, kv, d), dt, device).transpose(1, 2)
+        v = _rand(gen, (b, s, kv, d), dt, device).transpose(1, 2)
+        kw = dict(causal=causal, window=window, softcap=cap, q_offset=off,
+                  return_lse=True)
+        out, lse = fa_k.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa_k.flash_attention_plain(q, k, v, **kw)
+        assert out.shape == q.shape and out.dtype == dt and lse.shape == (b, h, sq)
+        e1 = _check(f"flash[{name}] out", out, ref_out, TOL[dt])
+        e2 = _check(f"flash[{name}] lse", lse, ref_lse, TOL[dt])
+        worst[dt] = max(worst[dt], e1)
+        print(f"  flash {name:32s} out err {e1:.3e}  lse err {e2:.3e}")
+
+    # timing at the serving shape
+    dt = torch.bfloat16
+    q = _rand(gen, (B, PROMPT, H, D), dt, device).transpose(1, 2)
+    k = _rand(gen, (B, PROMPT, KV, D), dt, device).transpose(1, 2)
+    v = _rand(gen, (B, PROMPT, KV, D), dt, device).transpose(1, 2)
+    out = fa_k.flash_attention(q, k, v)
+    err = _check("flash[timed] out", out, fa_k.flash_attention_plain(q, k, v), TOL[dt])
+    ms = timer(lambda: fa_k.flash_attention(q, k, v))
+    plain_ms = timer(lambda: fa_k.flash_attention_plain(q, k, v))
+    # the fp32 path (FMAs on the CUDA cores) at the same shape, for the record
+    qf, kf, vf = q.float(), k.float(), v.float()
+    fp32_ms = timer(lambda: fa_k.flash_attention(qf, kf, vf))
+    del qf, kf, vf
+    try:
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                     enable_gqa=True)
+        lib()
+    except (TypeError, RuntimeError):
+        ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)  # noqa: E731
+    _check("flash[timed] vs library", out, lib(), TOL[dt])
+    library_ms = timer(lib)
+    es = q.element_size()
+    nbytes = (2 * B * H * PROMPT * D + 2 * B * KV * PROMPT * D) * es
+    flops = 4 * D * B * H * _visible_pairs(PROMPT, PROMPT, True, None, 0)
+    t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:88",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
+        "library_ms": library_ms, "fp32_path_ms": fp32_ms,
+        "shape": f"q({B},{H},{PROMPT},{D}) kv({B},{KV},{PROMPT},{D}) bf16 causal",
+        "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
+        "max_abs_err_all_bf16": worst[torch.bfloat16],
+        "max_abs_err_all_fp32": worst[torch.float32],
+    }
+
+
+# ----------------------------------------------------------------------
+# K2
+def decode_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, dtype, b, kv, g, s, d, softcap, lengths (None = random mask), splits
+    return [
+        ("main bf16", bf, B, KV, 3, MAX_LEN, D, 0.0, [PROMPT + 1 + i for i in range(B)], None),
+        ("main fp32", f32, B, KV, 3, MAX_LEN, D, 0.0, [PROMPT + 1 + i for i in range(B)], None),
+        ("lengths 1,S-1,S g1 bf16", bf, 3, 4, 1, 256, 128, 0.0, [1, 255, 256], None),
+        ("lengths 1,S-1,S g8 fp32", f32, 3, 2, 8, 192, 64, 0.0, [1, 191, 192], None),
+        ("g3 single split", bf, 2, 8, 3, 512, 128, 0.0, [300, 512], 1),
+        ("g3 seven splits", f32, 2, 8, 3, 500, 128, 0.0, [300, 500], 7),
+        ("smoke d16 s32 bf16", bf, 2, 2, 2, 32, 16, 0.0, [7, 32], None),
+        ("smoke d16 s32 fp32", f32, 2, 2, 2, 32, 16, 0.0, [1, 31], None),
+        ("d256 softcap30 g2 bf16", bf, 2, 4, 2, 300, 256, 30.0, [123, 300], None),
+        ("d256 g5 fp32", f32, 1, 4, 5, 130, 256, 0.0, [130], None),
+        ("random mask g4 d64 bf16", bf, 4, 2, 4, 777, 64, 0.0, None, None),
+        ("random mask g6 softcap fp32", f32, 2, 3, 6, 257, 128, 30.0, None, None),
+    ]
+
+
+def _prefix_mask(lengths, s, device):
+    n = torch.tensor(lengths, device=device)
+    return torch.arange(s, device=device)[None, :] < n[:, None]
+
+
+def check_decode(device, timer):
+    gen = torch.Generator(device=device).manual_seed(2)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for (name, dt, b, kv, g, s, d, cap, lengths, splits) in decode_cases():
+        q = _rand(gen, (b, kv, g, d), dt, device)
+        k = _rand(gen, (b, s, kv, d), dt, device)
+        v = _rand(gen, (b, s, kv, d), dt, device)
+        if lengths is None:
+            mask = torch.rand((b, s), generator=gen, device=device) < 0.4
+            mask[:, s // 2] = True          # at least one valid slot a row
+        else:
+            mask = _prefix_mask(lengths, s, device)
+        out, m, l = dec_k.decode_attention(q, k, v, mask, softcap=cap,
+                                           return_stats=True, splits=splits)
+        torch.cuda.synchronize()
+        r_out, r_m, r_l = dec_k.decode_attention_plain(q, k, v, mask, softcap=cap,
+                                                       return_stats=True)
+        assert out.shape == q.shape and out.dtype == dt and m.shape == (b, kv, g, 1)
+        e1 = _check(f"decode[{name}] out", out, r_out, TOL[dt])
+        e2 = _check(f"decode[{name}] m", m, r_m, TOL[dt])
+        e3 = _check(f"decode[{name}] l", l, r_l, TOL[dt])
+        worst[dt] = max(worst[dt], e1)
+        print(f"  decode {name:31s} out err {e1:.3e}  m err {e2:.3e}  l err {e3:.3e}")
+
+    dt = torch.bfloat16
+    g = H // KV
+    q = _rand(gen, (B, KV, g, D), dt, device)
+    k = _rand(gen, (B, MAX_LEN, KV, D), dt, device)
+    v = _rand(gen, (B, MAX_LEN, KV, D), dt, device)
+    lengths = [PROMPT + 8] * B                 # the middle of the 16 decode steps
+    mask = _prefix_mask(lengths, MAX_LEN, device)
+    out = dec_k.decode_attention(q, k, v, mask)
+    err = _check("decode[timed] out", out, dec_k.decode_attention_plain(q, k, v, mask),
+                 TOL[dt])
+    ms = timer(lambda: dec_k.decode_attention(q, k, v, mask))
+    plain_ms = timer(lambda: dec_k.decode_attention_plain(q, k, v, mask))
+    ql = q.reshape(B, H, 1, D)
+    kl, vl = k.transpose(1, 2), v.transpose(1, 2)
+    am = mask[:, None, None, :]
+    try:
+        lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am,  # noqa: E731
+                                                     enable_gqa=True)
+        lib()
+    except (TypeError, RuntimeError):
+        ke, ve = (t.repeat_interleave(g, dim=1) for t in (kl, vl))
+        lib = lambda: F.scaled_dot_product_attention(ql, ke, ve, attn_mask=am)  # noqa: E731
+    _check("decode[timed] vs library", out.reshape(B, H, 1, D), lib(), TOL[dt])
+    library_ms = timer(lib)
+    es = q.element_size()
+    n_valid = int(mask.sum().item())
+    # the kernel loads only valid slots, so the bound counts those
+    nbytes = 2 * n_valid * KV * D * es + 2 * B * H * D * es + B * MAX_LEN
+    flops = 4 * g * D * KV * n_valid
+    t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:67",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
+        "library_ms": library_ms,
+        "shape": f"q({B},{KV},{g},{D}) kv({B},{MAX_LEN},{KV},{D}) bf16, "
+                 f"{lengths[0]} valid slots a row (bound counts valid slots)",
+        "splits": dec_k.num_splits(B, KV, MAX_LEN, sms),
+        "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
+        "all_slots_bound_ms": (2 * B * MAX_LEN * KV * D * es) / HBM_BW * 1e3,
+        "max_abs_err_all_bf16": worst[torch.bfloat16],
+        "max_abs_err_all_fp32": worst[torch.float32],
+    }
+
+
+# ----------------------------------------------------------------------
+def main_path(device, args):
+    """Gateway -> engines at full width through ``launch.serve``'s entry
+    points. Returns the launch counts read right after the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.variants import VariantPool
+    from repro_torch.launch import serve
+
+    arch = "phi4-mini-3.8b"
+    cfg = get_config(arch)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model) == (H, KV, D, 3072)
+    pool = VariantPool(cfg)
+
+    fa_k.launches = 0
+    dec_k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    report = serve.serve_trace(
+        arch, policy="proportional", requests=args.requests, disconnect=True,
+        smoke=False, device=device, dtype="bfloat16", batch=B,
+        prompt_len=PROMPT, decode_steps=args.decode_steps, max_len=MAX_LEN,
+        seed=args.seed, verbose=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_flash, n_decode = fa_k.launches, dec_k.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    runs = report["runs"]
+    assert runs, "no share was executed"
+    assert report["disconnected"], "the trace did not disconnect a node"
+    exp_flash = sum(pool[r["level"]].config.num_layers for r in runs)
+    exp_decode = exp_flash * args.decode_steps
+    for r in runs:
+        assert r["tokens"].shape == (B, args.decode_steps), r["tokens"].shape
+        assert r["tokens"].min() >= 0 and r["tokens"].max() < cfg.vocab_size
+        assert r["finite"], f"non-finite logits at level {r['level']}"
+    assert n_flash == exp_flash, f"flash launches {n_flash} != layers x prefills {exp_flash}"
+    assert n_decode == exp_decode, f"decode launches {n_decode} != {exp_decode}"
+    levels = sorted({r["level"] for r in runs})
+    print(f"main path: {len(report['results'])} requests, {len(runs)} shares run, "
+          f"levels {levels}, flash launches {n_flash}, decode launches {n_decode}, "
+          f"wall {wall:.1f} s")
+    pre = statistics.median(r["prefill_ms"] for r in runs)
+    dec = statistics.median(r["decode_ms_per_step"] for r in runs)
+    print(f"main path: prefill {pre:.2f} ms (batch {B} x {PROMPT}), "
+          f"{dec:.3f} ms per decode step, {B * 1e3 / dec:.1f} tokens/s decode, "
+          f"peak memory {peak / 2**30:.2f} GiB")
+
+    # use_kernels on and off agree on the prefill logits of one level
+    lvl = levels[0]
+    eng_k = report["engines"][lvl]
+    toks = serve.make_prompts(cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
+    logits_k, _, _ = eng_k.prefill(toks)
+    eng_p = serve.Engine(eng_k.cfg, eng_k.params,
+                         serve.EngineConfig(max_len=MAX_LEN, use_kernels=False),
+                         device=device)
+    logits_p, _, _ = eng_p.prefill(toks)
+    torch.cuda.synchronize()
+    assert logits_k.shape == (B, cfg.vocab_size) and torch.isfinite(logits_k).all()
+    # bf16 activations through up to 32 layers: the two attention paths round
+    # at other places. With these random weights the largest logit is about
+    # 0.6 and the paths differ by about 0.005; the limit is a few times that
+    # and a tenth of a typical logit.
+    diff = (logits_k - logits_p).abs().max().item()
+    scale = logits_p.abs().max().item()
+    print(f"main path: prefill logits kernels vs einsum path, level {lvl}: "
+          f"max abs diff {diff:.4f} (max |logit| {scale:.3f})")
+    assert diff <= LOGITS_TOL, (
+        f"kernel and einsum paths disagree: {diff} > {LOGITS_TOL}")
+    return {"flash_attention": n_flash, "decode_attention": n_decode,
+            "prefill_ms": pre, "decode_ms_per_step": dec, "peak_bytes": peak}
+
+
+def profile_phase(device, args):
+    """Where the time goes (not part of the default run): ``torch.profiler``
+    over one prefill and four decode steps of the full-width level-0 engine.
+    Prints wall time, the device's busy time and idle share, and the kernels
+    that take most of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("phi4-mini-3.8b")
+    eng = serve.EnginePool(cfg, device=device, dtype="bfloat16", max_len=MAX_LEN,
+                           seed=args.seed).engine_for(0)
+    toks = serve.make_prompts(cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
+    eng.generate(toks, num_steps=2)                      # warm-up
+    logits, caches, lengths = eng.prefill(toks)
+    state = {"caches": caches, "lengths": lengths, "tok": logits.argmax(-1)}
+
+    def decode4():
+        for _ in range(4):
+            lg, state["caches"], state["lengths"] = eng.decode(
+                state["caches"], state["lengths"], state["tok"])
+            state["tok"] = lg.argmax(-1)
+
+    for name, fn in (("prefill", lambda: eng.prefill(toks)), ("4 decode steps", decode4)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for e in prof.key_averages():
+            # kernel rows only: an operator row repeats its kernels' device time
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0)
+            if dev_us > 0:
+                rows.append((dev_us, e.count, e.key))
+        rows.sort(reverse=True)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        print(f"profile[{name}]: wall {wall_ms:.2f} ms (profiler on), device busy "
+              f"{busy_ms:.2f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+        if not rows:
+            raise AssertionError("the profiler saw no device time")
+        for dev_us, count, key in rows[:10]:
+            print(f"    {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=("all", "kernels", "main", "profile"), default="all")
+    ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--decode-steps", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    card = card_line()
+    print("card:", card)
+    print("torch", torch.__version__, "cuda", torch.version.cuda)
+
+    t0 = time.time()
+    _build.load()
+    print(f"set-up: kernels built in {time.time() - t0:.1f} s "
+          f"({len(_build.sources())} sources -> {_build.build_dir()})")
+    log = _build.build_log()
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+    if regs:
+        print(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread, "
+              f"{sum(1 for x in spills if x)} with spills (most {max(spills, default=0)} bytes)")
+
+    kernels = []
+    if args.phase in ("all", "kernels"):
+        timer = Timer(device)
+        print("kernels against their plain versions on the card:")
+        kernels = [check_flash(device, timer), check_decode(device, timer)]
+        for kd in kernels:
+            print(f"  {kd['name']}: {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
+                  f"library {kd['library_ms']:.4f} ms, bound {kd['bound_ms']:.4f} ms "
+                  f"({kd['bound_by']})")
+        del timer
+        torch.cuda.empty_cache()
+    if args.phase in ("all", "main"):
+        counts = main_path(device, args)
+        for kd in kernels:
+            kd["launches"] = counts[kd["name"]]
+            if kd["launches"] <= 0:
+                raise AssertionError(f"{kd['name']} was not launched on the main path")
+
+    if args.phase == "profile":
+        profile_phase(device, args)
+
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    if args.phase != "all":
+        print(f"partial run (--phase {args.phase}): no final result line")
+        return 0
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

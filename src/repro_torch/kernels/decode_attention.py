@@ -1,0 +1,136 @@
+"""Single-token GQA decode attention (flash-decode) for the H100: wrapper of
+the hand-written CUDA kernel ``csrc/decode_attention.cu`` and, beside it, the
+plain PyTorch version.
+
+Replaces the TPU kernel ``repro/kernels/decode_attention.py::decode_attention``.
+The kernel's design notes (memory-bound; split over the cache length and
+merged with the flash-decode rule) are at the top of the ``.cu`` source.
+
+Device rule: a CUDA tensor launches the kernel or raises; the plain version
+runs only for a tensor that lies on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, NEG_INF,
+                                                 _aligned_view, _resolve_scale)
+
+MAX_GROUP = 8
+MIN_ROWS_PER_SPLIT = 64
+BLOCKS_PER_SM = 4     # how many blocks per SM the split over S aims for
+
+launches = 0          # kernel launches made by :func:`decode_attention`
+
+_I64, _INT, _F32, _PTR = (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p)
+_fn = None
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        fn = _build.load().decode_attention_fwd
+        fn.argtypes = ([_PTR] * 9 + [_INT] * 6 + [_I64] * 8
+                       + [_F32, _F32, _INT, _PTR])
+        fn.restype = _INT
+        _fn = fn
+    return _fn
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor, *, softcap: float = 0.0,
+                           scale: Optional[float] = None,
+                           return_stats: bool = False):
+    """The kernel's arithmetic in plain PyTorch (fp32, ``NEG_INF`` masking,
+    ``max(l, 1e-30)`` clamp). Same signature and outputs as
+    :func:`decode_attention`."""
+    scale = _resolve_scale(scale, q.shape[-1])
+    scores = torch.einsum("bkgd,bskd->bkgs", q.float(), k.float()) * scale
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float()) / l.clamp_min(1e-30)
+    out = out.to(q.dtype)
+    return (out, m, l) if return_stats else out
+
+
+def num_splits(batch: int, kv_heads: int, s: int, sm_count: int) -> int:
+    """Chunks the cache length is cut into: enough blocks to give every SM
+    ``BLOCKS_PER_SM`` of them, but no chunk under ``MIN_ROWS_PER_SPLIT``."""
+    want = math.ceil(BLOCKS_PER_SM * sm_count / (batch * kv_heads))
+    return max(1, min(want, math.ceil(s / MIN_ROWS_PER_SPLIT)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, *, softcap: float = 0.0,
+                     scale: Optional[float] = None,
+                     return_stats: bool = False,
+                     splits: Optional[int] = None):
+    """q: (B, KV, G, D), one query token per head group; k/v: (B, S, KV, D),
+    the cache's native layout (any view whose last dim is contiguous);
+    mask: (B, S) bool, the valid cache slots. Returns (B, KV, G, D), plus the
+    merged online-softmax stats (m, l), each (B, KV, G, 1) fp32, when
+    ``return_stats``. ``splits`` overrides the number of chunks over S."""
+    global launches
+    if not q.is_cuda:
+        return decode_attention_plain(q, k, v, mask, softcap=softcap,
+                                      scale=scale, return_stats=return_stats)
+    assert not (torch.is_grad_enabled() and q.requires_grad), \
+        "decode_attention is inference only"
+    b, kv, g, d = q.shape
+    s = k.shape[1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"group size {g} outside 1..{MAX_GROUP}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode_attention takes float32 or bfloat16, got {q.dtype}")
+    if not (k.dtype == v.dtype == q.dtype and k.device == v.device == q.device
+            and mask.device == q.device):
+        raise TypeError("q, k, v must share dtype and device (mask: device)")
+    if mask.dtype != torch.bool or mask.shape != (b, s):
+        raise TypeError(f"mask must be bool (B, S), got {mask.dtype} {tuple(mask.shape)}")
+    if k.shape != (b, s, kv, d) or v.shape != k.shape:
+        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    q = q.contiguous()
+    k, v = _aligned_view(k), _aligned_view(v)
+    if splits is None:
+        splits = num_splits(b, kv, s, _sm_count(q.device))
+    dev = q.device
+    out = torch.empty((b, kv, g, d), dtype=q.dtype, device=dev)
+    m_out = torch.empty((b, kv, g, 1), dtype=torch.float32, device=dev)
+    l_out = torch.empty((b, kv, g, 1), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, kv, splits, g, d), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b, kv, splits, g, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(),
+            b, s, kv, g, d, int(splits),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            mask.stride(0), mask.stride(1),
+            _resolve_scale(scale, d), float(softcap),
+            1 if q.dtype == torch.bfloat16 else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed (code {err})")
+    launches += 1
+    return (out, m_out, l_out) if return_stats else out

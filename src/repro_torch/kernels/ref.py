@@ -1,0 +1,55 @@
+"""Pure-PyTorch oracles for the attention kernels (the allclose ground
+truth): fp32 math, ``-inf`` masking, cast back to the input dtype. They
+mirror ``repro/kernels/ref.py`` line for line; an all-masked row is NaN
+here, which no caller on the serving path produces."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: float = 0.0,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,H,S,D); k/v: (B,KV,S,D) -> (B,H,S,D)."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, kv, g, s, d).float()
+    kf = k.float()
+    vf = v.float()
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    qi = torch.arange(s, device=q.device)[:, None]
+    kj = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", probs, vf)
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         mask: torch.Tensor, *, softcap: float = 0.0,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,KV,G,D); k/v: (B,KV,S,D); mask: (B,S) -> (B,KV,G,D)."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bkgd,bktd->bkgt", q.float(), k.float()) * scale
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", probs, v.float())
+    return out.to(q.dtype)

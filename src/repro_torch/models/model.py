@@ -1,0 +1,103 @@
+"""Public model API: forward (full sequence), prefill / decode_step (serve).
+
+For ``frontend_stub`` archs (musicgen, llava-next) the modality frontend is a
+stub: callers pass precomputed frame/patch embeddings which are projected and
+prepended to the token embeddings; positions cover the concatenated stream.
+The training losses are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (embed_tokens, lm_logits, resolve_dtype,
+                                       rms_norm, sinusoidal_embedding)
+
+# re-exports for convenience
+init_params = tfm.init_params
+init_cache = tfm.init_cache
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return resolve_dtype(cfg.dtype)
+
+
+def _embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
+                  embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    dtype = _dtype(cfg)
+    x = embed_tokens(cfg, params["embed"], tokens, dtype)
+    if cfg.frontend_stub:
+        assert embeds is not None, f"{cfg.name} needs stub frontend embeddings"
+        fe = embeds.to(dtype) @ params["embed"]["frontend_proj"].to(dtype)
+        x = torch.cat([fe, x], dim=1)
+    if cfg.pos_kind == "sinusoidal":
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + sinusoidal_embedding(pos, cfg.d_model).to(dtype)[None]
+    return x
+
+
+def _backbone(cfg: ModelConfig, params, x, positions, caches, lengths, *,
+              mode: str, use_kernels: bool):
+    new_caches = {}
+    for g in tfm.layer_plan(cfg):
+        c = caches[g.name] if caches is not None else None
+        x, c_out = tfm.group_apply(cfg, g, params[g.name], x, positions, c,
+                                   lengths, mode=mode, use_kernels=use_kernels)
+        if c_out is not None:
+            new_caches[g.name] = c_out
+    if mode == "decode":
+        new_caches = caches      # written in place: the same tree goes back
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
+                 zero_centered=cfg.zero_centered_norm)
+    return x, new_caches
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
+            embeds: Optional[torch.Tensor] = None, *,
+            use_kernels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits over token positions, aux_loss);
+    the aux loss is 0 for the dense archs this slice runs."""
+    x = _embed_inputs(cfg, params, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, _ = _backbone(cfg, params, x, positions, None, None,
+                     mode="dense", use_kernels=use_kernels)
+    if cfg.frontend_stub:   # logits only over the token region
+        x = x[:, embeds.shape[1]:]
+    logits = lm_logits(cfg, params["embed"], x)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ----------------------------------------------------------------------
+# Serving paths
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
+            embeds: Optional[torch.Tensor] = None, *,
+            use_kernels: bool = False) -> Tuple[torch.Tensor, Any]:
+    """Process the prompt; returns (last-position logits, raw seq-length
+    caches stacked (L, B, S, KV, D) per group and sublayer). The engine pads
+    these into max_len decode caches."""
+    x = _embed_inputs(cfg, params, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, caches = _backbone(cfg, params, x, positions, None, None,
+                          mode="prefill", use_kernels=use_kernels)
+    logits = lm_logits(cfg, params["embed"], x[:, -1:])
+    return logits[:, 0], caches
+
+
+def decode_step(cfg: ModelConfig, params, caches, lengths: torch.Tensor,
+                tokens: torch.Tensor, *, use_kernels: bool = False
+                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """One decode step. tokens: (B,) new token ids; lengths: (B,) current
+    context lengths. Returns (logits (B,V), caches, lengths+1). ``caches`` is
+    written **in place** and handed back (this replaces the JAX engine's
+    buffer donation); ``lengths`` is not modified."""
+    x = embed_tokens(cfg, params["embed"], tokens[:, None], _dtype(cfg))
+    if cfg.pos_kind == "sinusoidal":
+        x = x + sinusoidal_embedding(lengths[:, None], cfg.d_model).to(x.dtype)
+    positions = lengths[:, None]
+    x, caches = _backbone(cfg, params, x, positions, caches, lengths,
+                          mode="decode", use_kernels=use_kernels)
+    logits = lm_logits(cfg, params["embed"], x)[:, 0]
+    return logits, caches, lengths + 1

@@ -1,0 +1,246 @@
+"""Model assembly: layer plan -> stacked super-blocks -> full model.
+
+Every architecture is expressed as a list of *groups*; each group is a stack
+of identical *units* (super-blocks) whose parameters carry a leading
+``n_units`` dim, exactly as in the JAX package (which scans over it):
+
+  * homogeneous archs: one group, unit = 1 layer, n_units = L
+  * gemma2: unit = (local layer, global layer), n_units = L/2
+  * jamba: unit = 8 layers (attn at idx 3, rest mamba; MoE on odd idx)
+  * deepseek: group "dense" (3 units) + group "moe" (58 units)
+
+Here a Python loop walks the units (PyTorch runs eagerly; there is no trace
+to keep small). This slice runs the ``gqa`` mixer with a dense MLP; the other
+mixers and MoE raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (ParamSpec, embed_param_specs,
+                                       init_from_specs, mlp_apply,
+                                       mlp_param_specs, resolve_device,
+                                       resolve_dtype, rms_norm)
+
+_NOT_PORTED = {
+    "mla": "MLA attention is not ported yet (ROADMAP.md Queue 1 item 7)",
+    "moe": "MoE layers are not ported yet (ROADMAP.md Queue 1 item 7)",
+    "mamba": "Mamba layers are not ported yet (ROADMAP.md Queue 1 item 8, kernel K3)",
+    "rwkv": "RWKV6 layers are not ported yet (ROADMAP.md Queue 1 item 8, kernel K4)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SubLayer:
+    mixer: str                    # gqa | mla | mamba | rwkv
+    is_global: bool = True        # local_global archs: global vs sliding
+    mlp: str = "dense"            # dense | moe | none (rwkv: channel-mix)
+    d_ff: int = 0                 # dense MLP width for this sublayer
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    name: str
+    pattern: Tuple[SubLayer, ...]
+    n_units: int
+
+
+def layer_plan(cfg: ModelConfig) -> List[Group]:
+    if cfg.attention_kind == "none":          # rwkv6
+        return [Group("layers", (SubLayer("rwkv", mlp="none"),), cfg.num_layers)]
+
+    if cfg.hybrid_block_size > 1:             # jamba
+        bs = cfg.hybrid_block_size
+        assert cfg.num_layers % bs == 0
+        pattern = []
+        for i in range(bs):
+            mixer = "gqa" if i in cfg.attn_layer_idx else "mamba"
+            is_moe = cfg.layer_is_moe(i)
+            pattern.append(SubLayer(mixer, mlp="moe" if is_moe else "dense",
+                                    d_ff=cfg.d_ff))
+        return [Group("layers", tuple(pattern), cfg.num_layers // bs)]
+
+    if cfg.attention_kind == "local_global":  # gemma2
+        assert cfg.num_layers % 2 == 0
+        pattern = (SubLayer("gqa", is_global=False, d_ff=cfg.d_ff),
+                   SubLayer("gqa", is_global=True, d_ff=cfg.d_ff))
+        return [Group("layers", pattern, cfg.num_layers // 2)]
+
+    mixer = "mla" if cfg.attention_kind == "mla" else "gqa"
+    groups: List[Group] = []
+    if cfg.num_dense_layers > 0:              # deepseek dense prelude
+        groups.append(Group("dense_layers",
+                            (SubLayer(mixer, d_ff=cfg.d_ff_dense),),
+                            cfg.num_dense_layers))
+    rest = cfg.num_layers - cfg.num_dense_layers
+    body_is_moe = cfg.moe is not None
+    groups.append(Group(
+        "layers",
+        (SubLayer(mixer, mlp="moe" if body_is_moe else "dense", d_ff=cfg.d_ff),),
+        rest))
+    return groups
+
+
+def _check_ported(sl: SubLayer):
+    if sl.mixer != "gqa":
+        raise NotImplementedError(_NOT_PORTED[sl.mixer])
+    if sl.mlp == "moe":
+        raise NotImplementedError(_NOT_PORTED["moe"])
+
+
+# ----------------------------------------------------------------------
+# Param specs
+def _norm_spec(cfg) -> ParamSpec:
+    init = "zeros" if cfg.zero_centered_norm else "ones"
+    return ParamSpec((cfg.d_model,), ("d_model",), init=init)
+
+
+def sublayer_param_specs(cfg: ModelConfig, sl: SubLayer) -> Dict[str, Any]:
+    _check_ported(sl)
+    specs: Dict[str, Any] = {"norm_mixer": _norm_spec(cfg)}
+    if cfg.post_norms:
+        specs["norm_mixer_post"] = _norm_spec(cfg)
+    specs["attn"] = attn.attn_param_specs(cfg)
+    if sl.mlp == "dense":
+        specs["norm_mlp"] = _norm_spec(cfg)
+        specs["mlp"] = mlp_param_specs(cfg, sl.d_ff)
+        if cfg.post_norms:
+            specs["norm_mlp_post"] = _norm_spec(cfg)
+    return specs
+
+
+def unit_param_specs(cfg: ModelConfig, group: Group) -> Dict[str, Any]:
+    return {f"sub{i}": sublayer_param_specs(cfg, sl)
+            for i, sl in enumerate(group.pattern)}
+
+
+def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Spec tree of one unit per group (the stacked ``n_units`` dim is added
+    at init). Same tree and names as the JAX package's."""
+    if cfg.mtp_depth > 0:
+        raise NotImplementedError(
+            "the multi-token-prediction head is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")
+    specs: Dict[str, Any] = {"embed": embed_param_specs(cfg),
+                             "final_norm": _norm_spec(cfg)}
+    for g in layer_plan(cfg):
+        specs[g.name] = unit_param_specs(cfg, g)
+    return specs
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator | int = 0,
+                dtype=torch.float32, device=None):
+    """Random parameters on ``device`` (None: the card) in ``dtype``, drawn
+    from a seeded ``torch.Generator`` (an int makes one on the device)."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=device).manual_seed(int(gen))
+    specs = model_param_specs(cfg)
+    plan = {g.name: g for g in layer_plan(cfg)}
+    out = {}
+    for name, sub in specs.items():
+        stack = plan[name].n_units if name in plan else None
+        if isinstance(sub, ParamSpec):
+            out[name] = init_from_specs(gen, {name: sub}, dtype, device)[name]
+        else:
+            out[name] = init_from_specs(gen, sub, dtype, device, stack)
+    return out
+
+
+# ----------------------------------------------------------------------
+# Sublayer application
+def _norm(cfg, scale, x):
+    return rms_norm(x, scale, cfg.norm_eps, zero_centered=cfg.zero_centered_norm)
+
+
+def sublayer_apply(cfg: ModelConfig, sl: SubLayer, p, x, positions,
+                   cache, lengths, *, mode: str, use_kernels: bool):
+    """mode: 'dense' (no cache out), 'prefill', 'decode'.
+    Returns (x, new_cache). In decode mode ``cache`` is updated in place."""
+    _check_ported(sl)
+    h = _norm(cfg, p["norm_mixer"], x)
+    if mode == "decode":
+        out, new_cache = attn.gqa_attention_decode(
+            cfg, p["attn"], h, cache, lengths, is_global=sl.is_global,
+            use_kernel=use_kernels)
+    else:
+        out, new_cache = attn.gqa_attention_dense(
+            cfg, p["attn"], h, positions, is_global=sl.is_global,
+            use_kernel=use_kernels)
+    if cfg.post_norms:
+        out = _norm(cfg, p["norm_mixer_post"], out)
+    x = x + out
+
+    if sl.mlp == "dense":
+        h = _norm(cfg, p["norm_mlp"], x)
+        out = mlp_apply(cfg, p["mlp"], h)
+        if cfg.post_norms:
+            out = _norm(cfg, p["norm_mlp_post"], out)
+        x = x + out
+    return x, new_cache
+
+
+def init_sublayer_cache(cfg: ModelConfig, sl: SubLayer, batch: int,
+                        max_len: int, dtype=torch.bfloat16, device=None):
+    _check_ported(sl)
+    return attn.init_kv_cache(cfg, batch, max_len, is_global=sl.is_global,
+                              dtype=dtype, device=device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Full-model cache tree on ``device`` (None: the card): per group, per
+    sublayer, stacked n_units."""
+    device = resolve_device(device)
+    out = {}
+    for g in layer_plan(cfg):
+        unit = {}
+        for i, sl in enumerate(g.pattern):
+            one = init_sublayer_cache(cfg, sl, batch, max_len, dtype, device)
+            unit[f"sub{i}"] = attn.KVCache(
+                *(t.new_zeros((g.n_units,) + tuple(t.shape)) for t in one))
+        out[g.name] = unit
+    return out
+
+
+# ----------------------------------------------------------------------
+# Group application (loop over the stacked units)
+def _unit_params(tree, u: int):
+    if isinstance(tree, dict):
+        return {k: _unit_params(v, u) for k, v in tree.items()}
+    return tree[u]
+
+
+def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
+                caches_stacked, lengths, *, mode: str, use_kernels: bool):
+    """Returns (x, caches_stacked | None).
+
+    decode: each unit's cache is a view ``stacked[u]`` that the attention
+    writes in place, so the stacked caches that come back are the ones that
+    went in. prefill: the per-unit K/V are stacked to ``(L, B, S, KV, D)``."""
+    collected = {f"sub{i}": [] for i in range(len(group.pattern))}
+    for u in range(group.n_units):
+        p_unit = _unit_params(params_stacked, u)
+        for i, sl in enumerate(group.pattern):
+            c_in = None
+            if mode == "decode":
+                c = caches_stacked[f"sub{i}"]
+                c_in = attn.KVCache(k=c.k[u], v=c.v[u])
+            x, c_out = sublayer_apply(
+                cfg, sl, p_unit[f"sub{i}"], x, positions, c_in, lengths,
+                mode=mode, use_kernels=use_kernels)
+            if mode == "prefill":
+                collected[f"sub{i}"].append(c_out)
+    if mode == "decode":
+        return x, caches_stacked
+    if mode == "prefill":
+        return x, {name: attn.KVCache(k=torch.stack([c.k for c in cs]),
+                                      v=torch.stack([c.v for c in cs]))
+                   for name, cs in collected.items()}
+    return x, None

@@ -1,0 +1,56 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. Run them on
+the card with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+(``chip_smoke.py`` makes the same comparisons at more shapes, and times them.)"""
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as dec_k
+from repro_torch.kernels import flash_attention as fa_k
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,window,softcap", [
+    (2, 8, 2, 256, 64, None, 0.0), (1, 4, 1, 192, 128, 64, 0.0),
+    (2, 4, 2, 32, 16, None, 30.0), (1, 8, 4, 128, 256, None, 0.0)])
+def test_flash_kernel_vs_plain(device, dtype, b, h, kv, s, d, window, softcap):
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device)
+               .to(dtype).transpose(1, 2) for n in (h, kv, kv))
+    before = fa_k.launches
+    out, lse = fa_k.flash_attention(q, k, v, window=window, softcap=softcap,
+                                    return_lse=True)
+    assert fa_k.launches == before + 1
+    want, want_lse = fa_k.flash_attention_plain(q, k, v, window=window,
+                                                softcap=softcap, return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kv,g,s,d", [(8, 8, 3, 1024, 128), (2, 2, 8, 192, 64),
+                                        (2, 2, 1, 32, 16), (1, 4, 5, 130, 256)])
+def test_decode_kernel_vs_plain(device, dtype, b, kv, g, s, d):
+    gen = torch.Generator(device=device).manual_seed(1)
+    q = torch.randn((b, kv, g, d), generator=gen, device=device).to(dtype)
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
+            for _ in range(2))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=device)
+    mask = torch.arange(s, device=device)[None, :] < lengths[:, None]
+    before = dec_k.launches
+    got = dec_k.decode_attention(q, k, v, mask, return_stats=True)
+    assert dec_k.launches == before + 1
+    want = dec_k.decode_attention_plain(q, k, v, mask, return_stats=True)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a.float(), b_.float(), atol=TOL[dtype], rtol=TOL[dtype])

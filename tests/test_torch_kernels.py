@@ -1,0 +1,210 @@
+"""Port kernels on the CPU: the plain PyTorch versions of the two attention
+kernels and the ``ops`` dispatch layer, held against the JAX package's
+oracles (``repro.kernels.ref``) and its Pallas kernels in interpret mode, on
+the same numpy inputs. Tolerances are the reference's own: 5e-5 in fp32,
+2e-2 in bf16."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.kernels import decode_attention as dec_k
+from repro_torch.kernels import flash_attention as fa_k
+from repro_torch.kernels import ops, ref
+
+from _torch_util import as_np, to_jax, to_torch
+
+TOL = {False: 5e-5, True: 2e-2}
+
+FLASH_SHAPES = [
+    (1, 4, 4, 128, 64),       # MHA
+    (2, 8, 2, 256, 64),       # GQA 4:1
+    (1, 4, 1, 192, 128),      # MQA, ragged seq vs block
+]
+FLASH_OPTS = [(None, 0.0), (64, 0.0), (None, 30.0)]
+DECODE_SHAPES = [(2, 4, 2, 256, 64), (1, 8, 1, 128, 128), (2, 2, 8, 192, 64),
+                 (2, 8, 3, 96, 16)]
+
+
+def _qkv(seed, b, h, kv, sq, s, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d)).astype(np.float32),
+            rng.standard_normal((b, kv, s, d)).astype(np.float32),
+            rng.standard_normal((b, kv, s, d)).astype(np.float32))
+
+
+def _close(got, want, bf16):
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=TOL[bf16],
+                               rtol=TOL[bf16])
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,s,d", FLASH_SHAPES)
+@pytest.mark.parametrize("window,softcap", FLASH_OPTS)
+def test_flash_plain_vs_jax_oracle_and_pallas(b, h, kv, s, d, window, softcap, bf16):
+    q, k, v = _qkv(1, b, h, kv, s, s, d)
+    tq, tk, tv = (to_torch(x, bf16) for x in (q, k, v))
+    jq, jk, jv = (to_jax(x, bf16) for x in (q, k, v))
+    out, lse = fa_k.flash_attention(tq, tk, tv, window=window, softcap=softcap,
+                                    return_lse=True)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    _close(out, jref.flash_attention_ref(jq, jk, jv, window=window,
+                                         softcap=softcap), bf16)
+    p_out, p_lse = jax_flash(jq, jk, jv, window=window, softcap=softcap,
+                             interpret=True, block_q=64, block_k=64,
+                             return_lse=True)
+    _close(out, p_out, bf16)
+    _close(lse, p_lse, bf16)
+    # the port's own oracle agrees with the JAX one
+    _close(ref.flash_attention_ref(tq, tk, tv, window=window, softcap=softcap),
+           jref.flash_attention_ref(jq, jk, jv, window=window, softcap=softcap),
+           bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window,softcap", FLASH_OPTS)
+def test_ops_flash_model_layout(window, softcap, bf16):
+    """``ops.flash_attention`` takes (B,S,H,D) and hands strided views on;
+    with and without ``force_ref`` it matches the JAX oracle."""
+    b, h, kv, s, d = 2, 8, 2, 96, 16
+    q, k, v = _qkv(2, b, h, kv, s, s, d)
+    jq, jk, jv = (to_jax(x, bf16) for x in (q, k, v))
+    want = jnp.swapaxes(jref.flash_attention_ref(
+        jq, jk, jv, window=window, softcap=softcap), 1, 2)
+    tq, tk, tv = (to_torch(x, bf16).transpose(1, 2).contiguous() for x in (q, k, v))
+    for force in (False, True):
+        ops.force_ref(force)
+        try:
+            got = ops.flash_attention(tq, tk, tv, window=window,
+                                      attn_softcap=softcap)
+        finally:
+            ops.force_ref(False)
+        assert got.shape == (b, s, h, d)
+        _close(got, want, bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_q_offset(window, bf16):
+    """A q shard at ``q_offset`` against whole K/V equals those rows of the
+    full result, in the port and in the Pallas kernel."""
+    b, h, kv, s, d = 1, 4, 2, 128, 64
+    off = 64
+    q, k, v = _qkv(3, b, h, kv, s, s, d)
+    tq, tk, tv = (to_torch(x, bf16) for x in (q, k, v))
+    full, full_lse = fa_k.flash_attention(tq, tk, tv, window=window, return_lse=True)
+    part, part_lse = fa_k.flash_attention(tq[:, :, off:], tk, tv, window=window,
+                                          q_offset=off, return_lse=True)
+    _close(part, full[:, :, off:], bf16)
+    _close(part_lse, full_lse[:, :, off:], bf16)
+    jq, jk, jv = (to_jax(x, bf16) for x in (q, k, v))
+    p_out, p_lse = jax_flash(jq[:, :, off:], jk, jv, window=window, q_offset=off,
+                             interpret=True, block_q=64, block_k=64,
+                             return_lse=True)
+    _close(part, p_out, bf16)
+    _close(part_lse, p_lse, bf16)
+
+
+def test_flash_non_causal_and_strided_views():
+    b, h, kv, sq, s, d = 1, 4, 4, 40, 56, 16
+    q, k, v = _qkv(4, b, h, kv, sq, s, d)
+    # views with a contiguous last dim only, as the model hands them over
+    tq = to_torch(q).transpose(1, 2).contiguous().transpose(1, 2)
+    tk = to_torch(k).transpose(1, 2).contiguous().transpose(1, 2)
+    tv = to_torch(v).transpose(1, 2).contiguous().transpose(1, 2)
+    assert not tq.is_contiguous()
+    got = fa_k.flash_attention(tq, tk, tv, causal=False)
+    scores = np.einsum("bhsd,bhtd->bhst", q, k) / np.sqrt(d)
+    probs = np.exp(scores - scores.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    _close(got, np.einsum("bhst,bhtd->bhsd", probs, v), False)
+
+
+def _decode_inputs(seed, b, kv, g, s, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, kv, g, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kv, d)).astype(np.float32)
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = s                      # one full row
+    mask = np.arange(s)[None, :] < lengths[:, None]
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("b,kv,g,s,d", DECODE_SHAPES)
+def test_decode_plain_vs_jax_oracle_and_pallas(b, kv, g, s, d, softcap, bf16):
+    q, k, v, mask = _decode_inputs(5, b, kv, g, s, d)
+    tq, tk, tv = (to_torch(x, bf16) for x in (q, k, v))
+    jq, jk, jv = (to_jax(x, bf16) for x in (q, k, v))
+    out, m, l = dec_k.decode_attention(tq, tk, tv, torch.from_numpy(mask),
+                                       softcap=softcap, return_stats=True)
+    assert out.shape == (b, kv, g, d) and m.shape == l.shape == (b, kv, g, 1)
+    want = jref.decode_attention_ref(jq, jnp.swapaxes(jk, 1, 2),
+                                     jnp.swapaxes(jv, 1, 2), jnp.asarray(mask),
+                                     softcap=softcap)
+    _close(out, want, bf16)
+    p_out, p_m, p_l = jax_decode(jq, jk, jv, jnp.asarray(mask), softcap=softcap,
+                                 interpret=True, block_k=32, return_stats=True)
+    _close(out, p_out, bf16)
+    _close(m, p_m, bf16)
+    _close(l, p_l, bf16)
+    _close(ref.decode_attention_ref(tq, tk.transpose(1, 2), tv.transpose(1, 2),
+                                    torch.from_numpy(mask), softcap=softcap),
+           want, bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_ops_decode_model_layout(bf16):
+    b, kv, g, s, d = 2, 2, 3, 64, 16
+    q, k, v, mask = _decode_inputs(6, b, kv, g, s, d)
+    want = jref.decode_attention_ref(
+        to_jax(q, bf16), jnp.swapaxes(to_jax(k, bf16), 1, 2),
+        jnp.swapaxes(to_jax(v, bf16), 1, 2), jnp.asarray(mask))
+    tq = to_torch(q, bf16).reshape(b, 1, kv * g, d)
+    for force in (False, True):
+        ops.force_ref(force)
+        try:
+            got = ops.decode_attention(tq, to_torch(k, bf16), to_torch(v, bf16),
+                                       torch.from_numpy(mask))
+        finally:
+            ops.force_ref(False)
+        assert got.shape == (b, 1, kv * g, d)
+        _close(got.reshape(b, kv, g, d), want, bf16)
+
+
+def test_decode_split_merge_rule():
+    """The kernel cuts S into chunks and merges the partial (out, m, l) with
+    w = exp(m - m*) * l. The same rule applied to the plain version's stats
+    over two halves of the cache gives the whole-cache result."""
+    b, kv, g, s, d = 2, 2, 3, 64, 16
+    q, k, v, mask = _decode_inputs(7, b, kv, g, s, d)
+    tq, tk, tv, tm = to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(mask)
+    whole, m_w, l_w = dec_k.decode_attention(tq, tk, tv, tm, return_stats=True)
+    parts = [dec_k.decode_attention(tq, tk[:, sl], tv[:, sl], tm[:, sl],
+                                    return_stats=True)
+             for sl in (slice(0, 24), slice(24, s))]
+    m_star = torch.maximum(parts[0][1], parts[1][1])
+    ws = [torch.exp(m - m_star) * l for _, m, l in parts]
+    num = sum(o * w for (o, _, _), w in zip(parts, ws))
+    den = sum(ws)
+    _close(num / den.clamp_min(1e-30), whole, False)
+    _close(m_star, m_w, False)
+    _close(den, l_w, False)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    assert dec_k.num_splits(8, 8, 1024, 132) == 9
+    assert dec_k.num_splits(1, 1, 32, 132) == 1
+    assert dec_k.num_splits(64, 8, 4096, 132) == 2
+    x = torch.zeros(2, 8, 4, 16)
+    assert fa_k._aligned_view(x) is x
+    assert fa_k._aligned_view(x.transpose(1, 2)) is not None
+    odd = torch.zeros(2, 8, 4, 17)[..., 1:]
+    assert fa_k._aligned_view(odd).is_contiguous()
+    assert fa_k.launches == 0 and dec_k.launches == 0   # the CPU never launches
