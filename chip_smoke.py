@@ -2,26 +2,32 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py            # everything, as below
-    python3 chip_smoke.py --phase kernels     # or: main, profile
+    python3 chip_smoke.py --phase kernels     # or: main, profile [--arch ...]
 
 Phases, each of which fails the run with a non-zero exit code:
 
 1. print the card (name, power limit) and build the CUDA kernels from the
    sources under ``src/repro_torch/kernels/csrc`` (time printed as set-up);
-2. kernels: flash attention (prefill) and decode attention against their
-   plain PyTorch versions on the card, bf16 (tolerance 2e-2) and fp32
-   (tolerance 1e-4: the kernels sum in another order than ATen and use
-   expf/tanhf, on values of order 1), at the serving path's shapes and at
-   awkward ones. The absolute part of a tolerance is scaled by the largest
-   reference value where that is below 1 (a decode output averaged over
-   hundreds of slots is of order 0.1); each kernel is timed (CUDA events, L2 flushed before every
-   launch, median) beside its plain version, one library call and its
-   roofline bound;
-3. main path at full width: ``repro_torch.launch.serve`` with phi4-mini-3.8b
-   in bf16 — gateway start-up, a short request trace with a node disconnect
-   in the middle, every share run through the engine of its accuracy level
-   (batch 8, prompt 512, 16 decode steps, max_len 1024). Launch counts of
-   both kernels are set to 0 before and checked after;
+2. kernels: flash attention (prefill), decode attention and the RWKV6 WKV
+   recurrence against their plain PyTorch versions on the card, bf16
+   (tolerance 2e-2) and fp32 (tolerance 1e-4: the kernels sum in another
+   order than ATen and use expf/tanhf, on values of order 1), four times
+   both for the recurrence as in the reference's tests, at the serving
+   paths' shapes and at awkward ones. The absolute part of a tolerance is
+   scaled by the largest reference value where that is below 1 (a decode
+   output averaged over hundreds of slots is of order 0.1); each kernel is
+   timed (CUDA events, L2 flushed before every launch, median) beside its
+   plain version, one library call where there is one, and its roofline
+   bound;
+3. main paths at full width through ``repro_torch.launch.serve``, one after
+   the other, each a gateway start-up and a short request trace with a node
+   disconnect in the middle, every share run through the engine of its
+   accuracy level (batch 8, prompt 512, 16 decode steps, max_len 1024, bf16):
+   phi4-mini-3.8b (flash and decode attention), then rwkv6-1.6b (the WKV
+   recurrence in every prefill). Every launch count is set to 0 just before
+   a trace and checked just after; the prefill logits of one level are then
+   held against the same engine with the kernels off. The first trace's
+   engines are freed before the second, so each peak memory is its own;
 4. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
@@ -29,6 +35,7 @@ Needs a CUDA device: without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -47,15 +54,21 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_k  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
+from repro_torch.kernels import rwkv6_wkv as wkv_k  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BW = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+WKV_TOL = {dt: 4 * t for dt, t in TOL.items()}   # x4 for the recurrence
 LOGITS_TOL = 2e-2       # prefill logits, kernels on against kernels off, bf16
+LOGITS_TOL_FP32 = 5e-4  # the same in fp32, relative to the largest logit above 1
 
 # serving path shapes (phi4-mini-3.8b, batch 8, prompt 512, max_len 1024)
 B, H, KV, D, PROMPT, MAX_LEN = 8, 24, 8, 128, 512, 1024
+# rwkv6-1.6b: 32 heads of 64 folded with the batch, recurrence in fp32
+WKV_BH, WKV_D = B * 32, 64
+KERNELS = {"flash_attention": fa_k, "decode_attention": dec_k, "rwkv6_wkv": wkv_k}
 
 
 def card_line() -> str:
@@ -302,20 +315,95 @@ def check_decode(device, timer):
 
 
 # ----------------------------------------------------------------------
-def main_path(device, args):
-    """Gateway -> engines at full width through ``launch.serve``'s entry
-    points. Returns the launch counts read right after the run."""
+# K4
+def wkv_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, dtype, bh, s, dk, dv
+    return [
+        ("main fp32", f32, WKV_BH, PROMPT, WKV_D, WKV_D),
+        ("main bf16", bf, WKV_BH, PROMPT, WKV_D, WKV_D),
+        ("ragged s200 fp32", f32, 16, 200, 64, 64),
+        ("ragged s200 bf16", bf, 16, 200, 64, 64),
+        ("s1 fp32", f32, 8, 1, 64, 64),
+        ("s1 bf16", bf, 8, 1, 64, 64),
+        ("dk24 dv40 s37 fp32", f32, 4, 37, 24, 40),
+        ("dk128 dv96 s70 bf16", bf, 4, 70, 128, 96),
+        ("smoke d16 s32 fp32", f32, 8, 32, 16, 16),
+    ]
+
+
+def _wkv_inputs(gen, bh, s, dk, dv, dt, device):
+    """As the reference's kernel test draws them: decays in (0, 1), small k
+    and u (u stays fp32, as the model hands it over)."""
+    r = _rand(gen, (bh, s, dk), dt, device)
+    k = (torch.randn((bh, s, dk), generator=gen, device=device) * 0.3).to(dt)
+    v = _rand(gen, (bh, s, dv), dt, device)
+    w = torch.sigmoid(torch.randn((bh, s, dk), generator=gen, device=device)).to(dt)
+    u = torch.randn((bh, dk), generator=gen, device=device) * 0.1
+    return r, k, v, w, u
+
+
+def check_wkv(device, timer):
+    gen = torch.Generator(device=device).manual_seed(3)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for (name, dt, bh, s, dk, dv) in wkv_cases():
+        ins = _wkv_inputs(gen, bh, s, dk, dv, dt, device)
+        y, st = wkv_k.rwkv6_wkv(*ins)
+        torch.cuda.synchronize()
+        ref_y, ref_st = wkv_k.rwkv6_wkv_plain(*ins)
+        assert y.shape == (bh, s, dv) and y.dtype == dt
+        assert st.shape == (bh, dk, dv) and st.dtype == torch.float32
+        e1 = _check(f"wkv[{name}] y", y, ref_y, WKV_TOL[dt])
+        e2 = _check(f"wkv[{name}] s_final", st, ref_st, WKV_TOL[dt])
+        worst[dt] = max(worst[dt], e1, e2)
+        print(f"  wkv {name:34s} y err {e1:.3e}  s_final err {e2:.3e}")
+
+    # timing at the serving shape, fp32 as the model's fold hands it over
+    ins = _wkv_inputs(gen, WKV_BH, PROMPT, WKV_D, WKV_D, torch.float32, device)
+    y, st = wkv_k.rwkv6_wkv(*ins)
+    ref_y, ref_st = wkv_k.rwkv6_wkv_plain(*ins)
+    err = max(_check("wkv[timed] y", y, ref_y, WKV_TOL[torch.float32]),
+              _check("wkv[timed] s_final", st, ref_st, WKV_TOL[torch.float32]))
+    ms = timer(lambda: wkv_k.rwkv6_wkv(*ins))
+    plain_ms = timer(lambda: wkv_k.rwkv6_wkv_plain(*ins))
+    bf_ins = [t.to(torch.bfloat16) for t in ins[:4]] + [ins[4]]
+    bf16_ms = timer(lambda: wkv_k.rwkv6_wkv(*bf_ins))
+    del bf_ins
+    n_in = WKV_BH * PROMPT * (3 * WKV_D + WKV_D)          # r, k, w and v
+    nbytes = (4 * n_in + 4 * WKV_BH * WKV_D               # inputs and u
+              + 4 * WKV_BH * PROMPT * WKV_D               # y
+              + 4 * WKV_BH * WKV_D * WKV_D)               # s_final
+    # per step and state element: r.S (2), k v^T (1), w S + kv (2); the
+    # bonus term r.(u*k) is O(Dk) a step
+    flops = 5 * WKV_BH * PROMPT * WKV_D * WKV_D
+    t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+    return {
+        "name": "rwkv6_wkv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv.py:55",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
+        "library_ms": None, "bf16_ms": bf16_ms,
+        "shape": f"r/k/v/w({WKV_BH},{PROMPT},{WKV_D}) fp32, u({WKV_BH},{WKV_D})",
+        "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
+        "max_abs_err_all_bf16": worst[torch.bfloat16],
+        "max_abs_err_all_fp32": worst[torch.float32],
+    }
+
+
+# ----------------------------------------------------------------------
+def run_trace(device, args, arch):
+    """One request trace through ``launch.serve``'s entry points at full
+    width. Every kernel's launch count is set to 0 just before it and read
+    just after. Returns (report, counts, layers run over all prefills)."""
     from repro_torch.configs import get_config
     from repro_torch.core.variants import VariantPool
     from repro_torch.launch import serve
 
-    arch = "phi4-mini-3.8b"
     cfg = get_config(arch)
-    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model) == (H, KV, D, 3072)
     pool = VariantPool(cfg)
-
-    fa_k.launches = 0
-    dec_k.launches = 0
+    for mod in KERNELS.values():
+        mod.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     report = serve.serve_trace(
@@ -325,53 +413,97 @@ def main_path(device, args):
         seed=args.seed, verbose=True)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    n_flash, n_decode = fa_k.launches, dec_k.launches
+    counts = {name: mod.launches for name, mod in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
 
     runs = report["runs"]
     assert runs, "no share was executed"
     assert report["disconnected"], "the trace did not disconnect a node"
-    exp_flash = sum(pool[r["level"]].config.num_layers for r in runs)
-    exp_decode = exp_flash * args.decode_steps
     for r in runs:
         assert r["tokens"].shape == (B, args.decode_steps), r["tokens"].shape
         assert r["tokens"].min() >= 0 and r["tokens"].max() < cfg.vocab_size
         assert r["finite"], f"non-finite logits at level {r['level']}"
-    assert n_flash == exp_flash, f"flash launches {n_flash} != layers x prefills {exp_flash}"
-    assert n_decode == exp_decode, f"decode launches {n_decode} != {exp_decode}"
+    layers = sum(pool[r["level"]].config.num_layers for r in runs)
     levels = sorted({r["level"] for r in runs})
-    print(f"main path: {len(report['results'])} requests, {len(runs)} shares run, "
-          f"levels {levels}, flash launches {n_flash}, decode launches {n_decode}, "
-          f"wall {wall:.1f} s")
+    print(f"{arch}: {len(report['results'])} requests, {len(runs)} shares run, "
+          f"levels {levels}, launches {counts}, wall {wall:.1f} s")
     pre = statistics.median(r["prefill_ms"] for r in runs)
     dec = statistics.median(r["decode_ms_per_step"] for r in runs)
-    print(f"main path: prefill {pre:.2f} ms (batch {B} x {PROMPT}), "
+    print(f"{arch}: prefill {pre:.2f} ms (batch {B} x {PROMPT}), "
           f"{dec:.3f} ms per decode step, {B * 1e3 / dec:.1f} tokens/s decode, "
           f"peak memory {peak / 2**30:.2f} GiB")
+    return report, counts, layers
 
-    # use_kernels on and off agree on the prefill logits of one level
-    lvl = levels[0]
-    eng_k = report["engines"][lvl]
+
+def _tree_float(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def kernels_vs_einsum(device, args, report, fp32=False):
+    """Prefill logits of the trace's lowest level with ``use_kernels`` on
+    and off, on the same weights (``fp32``: copies of them in float32).
+    Returns (max abs difference, max |logit|)."""
+    from repro_torch.launch import serve
+
+    lvl = min(report["engines"])
+    cfg, params = report["engines"][lvl].cfg, report["engines"][lvl].params
+    if fp32:
+        cfg, params = cfg.scaled(dtype="float32"), _tree_float(params)
     toks = serve.make_prompts(cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
-    logits_k, _, _ = eng_k.prefill(toks)
-    eng_p = serve.Engine(eng_k.cfg, eng_k.params,
-                         serve.EngineConfig(max_len=MAX_LEN, use_kernels=False),
-                         device=device)
-    logits_p, _, _ = eng_p.prefill(toks)
+    logits = [serve.Engine(cfg, params, serve.EngineConfig(max_len=MAX_LEN,
+                                                           use_kernels=on),
+                           device=device).prefill(toks)[0]
+              for on in (True, False)]
     torch.cuda.synchronize()
-    assert logits_k.shape == (B, cfg.vocab_size) and torch.isfinite(logits_k).all()
-    # bf16 activations through up to 32 layers: the two attention paths round
-    # at other places. With these random weights the largest logit is about
-    # 0.6 and the paths differ by about 0.005; the limit is a few times that
-    # and a tenth of a typical logit.
-    diff = (logits_k - logits_p).abs().max().item()
-    scale = logits_p.abs().max().item()
-    print(f"main path: prefill logits kernels vs einsum path, level {lvl}: "
-          f"max abs diff {diff:.4f} (max |logit| {scale:.3f})")
-    assert diff <= LOGITS_TOL, (
-        f"kernel and einsum paths disagree: {diff} > {LOGITS_TOL}")
-    return {"flash_attention": n_flash, "decode_attention": n_decode,
-            "prefill_ms": pre, "decode_ms_per_step": dec, "peak_bytes": peak}
+    assert logits[0].shape == (B, cfg.vocab_size) and torch.isfinite(logits[0]).all()
+    diff = (logits[0] - logits[1]).abs().max().item()
+    scale = logits[1].abs().max().item()
+    print(f"{cfg.name}: prefill logits kernels vs einsum path, level {lvl}, "
+          f"{cfg.dtype}: max abs diff {diff:.6f} (max |logit| {scale:.3f})")
+    return diff, scale
+
+
+def main_path(device, args):
+    """Both traces, one after the other. Returns the launch counts of each
+    kernel, read right after the trace that runs it."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("phi4-mini-3.8b")
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model) == (H, KV, D, 3072)
+    report, counts, layers = run_trace(device, args, cfg.name)
+    want = {"flash_attention": layers, "decode_attention": layers * args.decode_steps,
+            "rwkv6_wkv": 0}
+    assert counts == want, f"launches {counts} != layers x prefills / steps {want}"
+    # bf16 activations through up to 32 layers: the kernel path and the
+    # einsum path round at other places. The limit is a few times what they
+    # differ by and a tenth of a typical logit.
+    diff, _ = kernels_vs_einsum(device, args, report)
+    assert diff <= LOGITS_TOL, f"kernel and einsum paths disagree: {diff} > {LOGITS_TOL}"
+    out = {k: counts[k] for k in ("flash_attention", "decode_attention")}
+    del report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("rwkv6-1.6b")
+    assert (cfg.d_model // cfg.ssm.wkv_head_dim, cfg.ssm.wkv_head_dim) == (
+        WKV_BH // B, WKV_D)
+    report, counts, layers = run_trace(device, args, cfg.name)
+    want = {"flash_attention": 0, "decode_attention": 0, "rwkv6_wkv": layers}
+    assert counts == want, f"launches {counts} != layers x prefills {want}"
+    # Both recurrences run in fp32 and differ only in the order of their
+    # sums, but in bf16 a last-bit difference flips roundings that 24 layers
+    # of random weights amplify (0.29 on logits of 5.1 on an H100; a 24-layer
+    # model of width 256 shows the same on the CPU, 0.09 in bf16 and 4e-5 in
+    # fp32). So the bf16 difference is printed and the check is made on fp32
+    # copies of the same weights, to the reference's end-to-end 5e-4.
+    kernels_vs_einsum(device, args, report)
+    diff, scale = kernels_vs_einsum(device, args, report, fp32=True)
+    tol = LOGITS_TOL_FP32 * max(1.0, scale)
+    assert diff <= tol, f"kernel and einsum paths disagree in fp32: {diff} > {tol}"
+    out["rwkv6_wkv"] = counts["rwkv6_wkv"]
+    return out
 
 
 def profile_phase(device, args):
@@ -384,7 +516,7 @@ def profile_phase(device, args):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    cfg = get_config("phi4-mini-3.8b")
+    cfg = get_config(args.arch)
     eng = serve.EnginePool(cfg, device=device, dtype="bfloat16", max_len=MAX_LEN,
                            seed=args.seed).engine_for(0)
     toks = serve.make_prompts(cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
@@ -431,6 +563,8 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--decode-steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", choices=("phi4-mini-3.8b", "rwkv6-1.6b"),
+                    default="phi4-mini-3.8b", help="the model --phase profile runs")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -445,22 +579,25 @@ def main(argv=None):
     _build.load()
     print(f"set-up: kernels built in {time.time() - t0:.1f} s "
           f"({len(_build.sources())} sources -> {_build.build_dir()})")
-    log = _build.build_log()
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
-    if regs:
-        print(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread, "
-              f"{sum(1 for x in spills if x)} with spills (most {max(spills, default=0)} bytes)")
+    for src, log in re.findall(r"== (\S+) \(exit \d+\)\n(.*?)(?=\n== |\Z)",
+                               _build.build_log(), re.S):
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        if regs:
+            print(f"  ptxas {src}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers "
+                  f"a thread, {sum(1 for x in spills if x)} with spills "
+                  f"(most {max(spills, default=0)} bytes)")
 
     kernels = []
     if args.phase in ("all", "kernels"):
         timer = Timer(device)
         print("kernels against their plain versions on the card:")
-        kernels = [check_flash(device, timer), check_decode(device, timer)]
+        kernels = [check_flash(device, timer), check_decode(device, timer),
+                   check_wkv(device, timer)]
         for kd in kernels:
+            lib = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.4f} ms"
             print(f"  {kd['name']}: {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
-                  f"library {kd['library_ms']:.4f} ms, bound {kd['bound_ms']:.4f} ms "
-                  f"({kd['bound_by']})")
+                  f"library {lib}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']})")
         del timer
         torch.cuda.empty_cache()
     if args.phase in ("all", "main"):

@@ -1,4 +1,4 @@
-"""Dispatch of model-layout calls onto the attention kernels.
+"""Dispatch of model-layout calls onto the kernels.
 
 On a CUDA tensor the wrappers launch the hand-written kernels; on a CPU
 tensor they run the kernels' plain PyTorch versions. ``force_ref()`` routes
@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_wkv as wkv_k
 
 _FORCE_REF = False
 
@@ -61,3 +62,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = dec_k.decode_attention(qd, k, v, mask, softcap=attn_softcap,
                                      scale=scale)
     return out.reshape(b, 1, h, d)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor):
+    """Folded layout r/k/w: (BH,S,Dk), v: (BH,S,Dv), u: (BH,Dk) ->
+    (y (BH,S,Dv), s_final (BH,Dk,Dv) fp32)."""
+    if _FORCE_REF:
+        return ref.rwkv6_wkv_ref(r, k, v, w, u)
+    return wkv_k.rwkv6_wkv(r, k, v, w, u)

@@ -1,6 +1,6 @@
-"""Pure-PyTorch oracles for the attention kernels (the allclose ground
-truth): fp32 math, ``-inf`` masking, cast back to the input dtype. They
-mirror ``repro/kernels/ref.py`` line for line; an all-masked row is NaN
+"""Pure-PyTorch oracles for the kernels (the allclose ground truth): fp32
+math, ``-inf`` masking, cast back to the input dtype. They mirror
+``repro/kernels/ref.py`` line for line; an all-masked attention row is NaN
 here, which no caller on the serving path produces."""
 from __future__ import annotations
 
@@ -53,3 +53,19 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,bktd->bkgd", probs, v.float())
     return out.to(q.dtype)
+
+
+def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor):
+    """r/k/w: (BH,S,Dk); v: (BH,S,Dv); u: (BH,Dk) ->
+    (y (BH,S,Dv) in r.dtype, s_final (BH,Dk,Dv) fp32)."""
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()
+    s = torch.zeros((r.shape[0], r.shape[2], v.shape[2]), dtype=torch.float32,
+                    device=r.device)
+    ys = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, None] * vf[:, t, None, :]              # (BH,Dk,Dv)
+        ys.append(torch.einsum("bk,bkv->bv", rf[:, t], s + uf[..., :, None] * kv))
+        s = wf[:, t, :, None] * s + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s

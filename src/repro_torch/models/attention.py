@@ -68,13 +68,15 @@ def _causal_mask(s_q: int, s_k: int, window: int | None, device=None) -> torch.T
 
 def gqa_scores_softmax(q, k, v, mask, attn_softcap: float, scale: float):
     """q:(B,Sq,H,D) k,v:(B,Sk,KV,D) mask:(B|1,Sq,Sk) -> (B,Sq,H,D).
-    Scores and softmax in fp32; the probabilities go back to ``v.dtype``
-    for the second product."""
+    Scores are computed in fp32 from the operands (as the JAX package's
+    ``preferred_element_type=float32`` does: no bf16 rounding of the scores),
+    softmax in fp32; the probabilities go back to ``v.dtype`` for the second
+    product."""
     b, sq, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
     qg = q.reshape(b, sq, kv, g, d)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
     scores = softcap(scores, attn_softcap)
     scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)

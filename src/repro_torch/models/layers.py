@@ -87,6 +87,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return (x * w).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(dtype)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap if cap > 0 else x
 

@@ -1,0 +1,149 @@
+"""Linear-recurrence mixers: RWKV6 (Finch). Mamba is not ported yet.
+
+The recurrence runs as a Python loop over time with the state vectorised
+over (batch, heads) on the reference path (``use_kernel=False``, and every
+decode step); the prefill of the serving path hands it to the CUDA kernel
+``repro_torch.kernels.rwkv6_wkv`` through ``kernels.ops``.
+
+Decode is a single recurrence step against a carried state, O(1) in the
+sequence length.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (ParamSpec, ParamTree, layer_norm,
+                                       resolve_device)
+
+MAMBA_NOT_PORTED = ("Mamba layers are not ported yet "
+                    "(ROADMAP.md Queue 1 item 8, kernel K3)")
+
+
+def _mamba_not_ported(*args, **kwargs):
+    raise NotImplementedError(MAMBA_NOT_PORTED)
+
+
+MambaState = mamba_param_specs = mamba_apply_dense = _mamba_not_ported
+mamba_apply_decode = init_mamba_state = _mamba_not_ported
+
+
+# ======================================================================
+# RWKV6 (Finch): data-dependent decay time-mix + channel-mix
+class RWKVState(NamedTuple):
+    wkv: torch.Tensor       # (B, H, Dk, Dv) per-head state, fp32
+    shift_t: torch.Tensor   # (B, d) last token (time-mix shift)
+    shift_c: torch.Tensor   # (B, d) last token (channel-mix shift)
+
+
+_LORA = 64                  # decay lora rank
+
+
+def rwkv_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    h = cfg.ssm.wkv_head_dim
+    nh = d // h
+    return {
+        # token-shift interpolation weights (static part) for r,k,v,w,g
+        "mix": ParamSpec((5, d), (None, "d_model"), init="zeros"),
+        "w_r": ParamSpec((d, d), ("d_model", "heads_flat")),
+        "w_k": ParamSpec((d, d), ("d_model", "heads_flat")),
+        "w_v": ParamSpec((d, d), ("d_model", "heads_flat")),
+        "w_g": ParamSpec((d, d), ("d_model", "heads_flat")),
+        "w_o": ParamSpec((d, d), ("heads_flat", "d_model")),
+        # data-dependent decay lora: w = exp(-exp(w0 + tanh(x A) B))
+        "decay_w0": ParamSpec((d,), ("d_model",), init="zeros"),
+        "decay_a": ParamSpec((d, _LORA), ("d_model", None)),
+        "decay_b": ParamSpec((_LORA, d), (None, "d_model")),
+        "bonus_u": ParamSpec((nh, h), (None, None), init="zeros"),
+        "ln_scale": ParamSpec((d,), ("d_model",), init="ones"),
+        "ln_bias": ParamSpec((d,), ("d_model",), init="zeros"),
+        # channel mix
+        "cm_mix": ParamSpec((2, d), (None, "d_model"), init="zeros"),
+        "cm_k": ParamSpec((d, cfg.d_ff), ("d_model", "d_ff")),
+        "cm_v": ParamSpec((cfg.d_ff, d), ("d_ff", "d_model")),
+        "cm_r": ParamSpec((d, d), ("d_model", "d_model_out")),
+    }
+
+
+def _shift(x: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
+    """x_{t-1} sequence: carry is the token before x[:, 0]."""
+    return torch.cat([carry[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def rwkv_time_mix(cfg: ModelConfig, p: ParamTree, x: torch.Tensor,
+                  state: RWKVState, use_kernel: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (out, new_wkv, new_shift). x: (B, S, d).
+
+    ``use_kernel`` (and more than one token) runs the recurrence through the
+    K4 kernel from a zero state, which is what prefill starts from."""
+    d = cfg.d_model
+    hd = cfg.ssm.wkv_head_dim
+    nh = d // hd
+    b, seq, _ = x.shape
+    prev = _shift(x, state.shift_t)
+    mix = p["mix"].to(x.dtype)
+    xr, xk, xv, xw, xg = (x + (prev - x) * mix[i] for i in range(5))
+    r = (xr @ p["w_r"].to(x.dtype)).reshape(b, seq, nh, hd)
+    k = (xk @ p["w_k"].to(x.dtype)).reshape(b, seq, nh, hd)
+    v = (xv @ p["w_v"].to(x.dtype)).reshape(b, seq, nh, hd)
+    g = F.silu(xg @ p["w_g"].to(x.dtype))
+    # data-dependent per-channel decay in (0,1)
+    ww = p["decay_w0"].float() + torch.tanh(
+        xw.float() @ p["decay_a"].float()) @ p["decay_b"].float()
+    w = torch.exp(-torch.exp(ww)).reshape(b, seq, nh, hd)        # (B,S,H,Dk)
+    u = p["bonus_u"].float()                                     # (H, Dk)
+
+    if use_kernel and seq > 1:
+        from repro_torch.kernels import ops as kops
+
+        def fold(t):   # one copy: fp32 cast and (B,S,H,D) -> (B*H,S,D)
+            return t.transpose(1, 2).to(
+                torch.float32, memory_format=torch.contiguous_format
+            ).reshape(b * nh, seq, hd)
+        u_bh = u[None].expand(b, nh, hd).reshape(b * nh, hd)
+        y_bh, s_bh = kops.rwkv6_wkv(fold(r), fold(k), fold(v), fold(w), u_bh)
+        y = y_bh.reshape(b, nh, seq, hd).transpose(1, 2).reshape(b, seq, d)
+        s_final = s_bh.reshape(b, nh, hd, hd)
+    else:
+        s = state.wkv.float()
+        rf, kf, vf = r.float(), k.float(), v.float()
+        ys = []
+        for t in range(seq):
+            kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # (B,H,Dk,Dv)
+            ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t],
+                                   s + u[None, :, :, None] * kv))
+            s = w[:, t, :, :, None] * s + kv
+        s_final = s
+        y = torch.stack(ys, dim=1).reshape(b, seq, d)            # (B,S,d)
+    y = layer_norm(y, p["ln_scale"].float(), p["ln_bias"].float(), cfg.norm_eps)
+    out = (y.to(x.dtype) * g) @ p["w_o"].to(x.dtype)
+    return out, s_final, x[:, -1, :]
+
+
+def rwkv_channel_mix(cfg: ModelConfig, p: ParamTree, x: torch.Tensor,
+                     state: RWKVState) -> Tuple[torch.Tensor, torch.Tensor]:
+    prev = _shift(x, state.shift_c)
+    mix = p["cm_mix"].to(x.dtype)
+    xk = x + (prev - x) * mix[0]
+    xr = x + (prev - x) * mix[1]
+    k = torch.square(torch.relu(xk @ p["cm_k"].to(x.dtype)))
+    out = torch.sigmoid(xr @ p["cm_r"].to(x.dtype)) * (k @ p["cm_v"].to(x.dtype))
+    return out, x[:, -1, :]
+
+
+def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                    device=None) -> RWKVState:
+    """Zeroed state on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    d = cfg.d_model
+    hd = cfg.ssm.wkv_head_dim
+    nh = d // hd
+    return RWKVState(
+        wkv=torch.zeros((batch, nh, hd, hd), dtype=torch.float32, device=device),
+        shift_t=torch.zeros((batch, d), dtype=dtype, device=device),
+        shift_c=torch.zeros((batch, d), dtype=dtype, device=device))

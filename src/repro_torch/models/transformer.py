@@ -10,8 +10,9 @@ of identical *units* (super-blocks) whose parameters carry a leading
   * deepseek: group "dense" (3 units) + group "moe" (58 units)
 
 Here a Python loop walks the units (PyTorch runs eagerly; there is no trace
-to keep small). This slice runs the ``gqa`` mixer with a dense MLP; the other
-mixers and MoE raise ``NotImplementedError``.
+to keep small). The port runs the ``gqa`` mixer with a dense MLP and the
+``rwkv`` mixer with its channel mix; the other mixers and MoE raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamSpec, embed_param_specs,
                                        init_from_specs, mlp_apply,
                                        mlp_param_specs, resolve_device,
@@ -30,8 +32,7 @@ from repro_torch.models.layers import (ParamSpec, embed_param_specs,
 _NOT_PORTED = {
     "mla": "MLA attention is not ported yet (ROADMAP.md Queue 1 item 7)",
     "moe": "MoE layers are not ported yet (ROADMAP.md Queue 1 item 7)",
-    "mamba": "Mamba layers are not ported yet (ROADMAP.md Queue 1 item 8, kernel K3)",
-    "rwkv": "RWKV6 layers are not ported yet (ROADMAP.md Queue 1 item 8, kernel K4)",
+    "mamba": ssm.MAMBA_NOT_PORTED,
 }
 
 
@@ -87,7 +88,7 @@ def layer_plan(cfg: ModelConfig) -> List[Group]:
 
 
 def _check_ported(sl: SubLayer):
-    if sl.mixer != "gqa":
+    if sl.mixer not in ("gqa", "rwkv"):
         raise NotImplementedError(_NOT_PORTED[sl.mixer])
     if sl.mlp == "moe":
         raise NotImplementedError(_NOT_PORTED["moe"])
@@ -105,6 +106,10 @@ def sublayer_param_specs(cfg: ModelConfig, sl: SubLayer) -> Dict[str, Any]:
     specs: Dict[str, Any] = {"norm_mixer": _norm_spec(cfg)}
     if cfg.post_norms:
         specs["norm_mixer_post"] = _norm_spec(cfg)
+    if sl.mixer == "rwkv":
+        specs["rwkv"] = ssm.rwkv_param_specs(cfg)
+        specs["norm_mlp"] = _norm_spec(cfg)   # channel-mix norm
+        return specs
     specs["attn"] = attn.attn_param_specs(cfg)
     if sl.mlp == "dense":
         specs["norm_mlp"] = _norm_spec(cfg)
@@ -162,9 +167,23 @@ def _norm(cfg, scale, x):
 def sublayer_apply(cfg: ModelConfig, sl: SubLayer, p, x, positions,
                    cache, lengths, *, mode: str, use_kernels: bool):
     """mode: 'dense' (no cache out), 'prefill', 'decode'.
-    Returns (x, new_cache). In decode mode ``cache`` is updated in place."""
+    Returns (x, new_cache). In decode mode a KV ``cache`` is updated in place;
+    an RWKV state comes back as new tensors (``group_apply`` copies them into
+    the stacked buffers)."""
     _check_ported(sl)
     h = _norm(cfg, p["norm_mixer"], x)
+    if sl.mixer == "rwkv":
+        state = cache if mode == "decode" else ssm.init_rwkv_state(
+            cfg, x.shape[0], x.dtype, device=x.device)
+        out, new_wkv, new_shift = ssm.rwkv_time_mix(
+            cfg, p["rwkv"], h, state,
+            use_kernel=use_kernels and mode != "decode")
+        x = x + out
+        h2 = _norm(cfg, p["norm_mlp"], x)
+        cm_out, new_shift_c = ssm.rwkv_channel_mix(cfg, p["rwkv"], h2, state)
+        x = x + cm_out
+        return x, ssm.RWKVState(wkv=new_wkv, shift_t=new_shift,
+                                shift_c=new_shift_c)
     if mode == "decode":
         out, new_cache = attn.gqa_attention_decode(
             cfg, p["attn"], h, cache, lengths, is_global=sl.is_global,
@@ -189,6 +208,8 @@ def sublayer_apply(cfg: ModelConfig, sl: SubLayer, p, x, positions,
 def init_sublayer_cache(cfg: ModelConfig, sl: SubLayer, batch: int,
                         max_len: int, dtype=torch.bfloat16, device=None):
     _check_ported(sl)
+    if sl.mixer == "rwkv":
+        return ssm.init_rwkv_state(cfg, batch, dtype, device=device)
     return attn.init_kv_cache(cfg, batch, max_len, is_global=sl.is_global,
                               dtype=dtype, device=device)
 
@@ -203,7 +224,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         unit = {}
         for i, sl in enumerate(g.pattern):
             one = init_sublayer_cache(cfg, sl, batch, max_len, dtype, device)
-            unit[f"sub{i}"] = attn.KVCache(
+            unit[f"sub{i}"] = type(one)(
                 *(t.new_zeros((g.n_units,) + tuple(t.shape)) for t in one))
         out[g.name] = unit
     return out
@@ -221,9 +242,11 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
                 caches_stacked, lengths, *, mode: str, use_kernels: bool):
     """Returns (x, caches_stacked | None).
 
-    decode: each unit's cache is a view ``stacked[u]`` that the attention
-    writes in place, so the stacked caches that come back are the ones that
-    went in. prefill: the per-unit K/V are stacked to ``(L, B, S, KV, D)``."""
+    decode: each unit's cache is a view ``stacked[u]``; the attention writes
+    its K/V row in place, and a new RWKV state is copied into the view, so
+    the stacked caches that come back are the ones that went in. prefill: the
+    per-unit caches are stacked, K/V to ``(L, B, S, KV, D)``, RWKV states to
+    ``(L, B, ...)``."""
     collected = {f"sub{i}": [] for i in range(len(group.pattern))}
     for u in range(group.n_units):
         p_unit = _unit_params(params_stacked, u)
@@ -231,16 +254,19 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
             c_in = None
             if mode == "decode":
                 c = caches_stacked[f"sub{i}"]
-                c_in = attn.KVCache(k=c.k[u], v=c.v[u])
+                c_in = type(c)(*(t[u] for t in c))
             x, c_out = sublayer_apply(
                 cfg, sl, p_unit[f"sub{i}"], x, positions, c_in, lengths,
                 mode=mode, use_kernels=use_kernels)
-            if mode == "prefill":
+            if mode == "decode":
+                for dst, src in zip(c_in, c_out):
+                    if src is not dst:
+                        dst.copy_(src)
+            elif mode == "prefill":
                 collected[f"sub{i}"].append(c_out)
     if mode == "decode":
         return x, caches_stacked
     if mode == "prefill":
-        return x, {name: attn.KVCache(k=torch.stack([c.k for c in cs]),
-                                      v=torch.stack([c.v for c in cs]))
+        return x, {name: type(cs[0])(*(torch.stack(f) for f in zip(*cs)))
                    for name, cs in collected.items()}
     return x, None

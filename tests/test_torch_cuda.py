@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
+from repro_torch.kernels import rwkv6_wkv as wkv_k
 
 pytestmark = pytest.mark.cuda
 
@@ -54,3 +55,24 @@ def test_decode_kernel_vs_plain(device, dtype, b, kv, g, s, d):
     want = dec_k.decode_attention_plain(q, k, v, mask, return_stats=True)
     for a, b_ in zip(got, want):
         torch.testing.assert_close(a.float(), b_.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,dk,dv", [(256, 512, 64, 64), (2, 200, 16, 16),
+                                        (3, 1, 64, 64), (2, 37, 24, 40),
+                                        (2, 70, 128, 96)])
+def test_rwkv6_wkv_kernel_vs_plain(device, dtype, bh, s, dk, dv):
+    gen = torch.Generator(device=device).manual_seed(2)
+    r, k, w = (torch.randn((bh, s, dk), generator=gen, device=device) for _ in range(3))
+    v = torch.randn((bh, s, dv), generator=gen, device=device)
+    k, w = k * 0.3, torch.sigmoid(w)
+    u = torch.randn((bh, dk), generator=gen, device=device) * 0.1
+    r, k, v, w = (t.to(dtype) for t in (r, k, v, w))
+    before = wkv_k.launches
+    y, st = wkv_k.rwkv6_wkv(r, k, v, w, u)
+    assert wkv_k.launches == before + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    want_y, want_st = wkv_k.rwkv6_wkv_plain(r, k, v, w, u)
+    tol = 4 * TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, want_st, atol=tol, rtol=tol)

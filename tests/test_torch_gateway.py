@@ -51,7 +51,8 @@ def test_registry_and_shapes_equal():
 
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma2-2b", "mixtral-8x7b",
-                                  "deepseek-v3-671b", "jamba-1.5-large-398b"])
+                                  "deepseek-v3-671b", "jamba-1.5-large-398b",
+                                  "rwkv6-1.6b"])
 def test_variant_ladder_equal(arch):
     a = VariantPool(configs.get_config(arch))
     b = JaxVariantPool(jconfigs.get_config(arch))
@@ -60,6 +61,24 @@ def test_variant_ladder_equal(arch):
         assert dataclasses.asdict(va.config) == dataclasses.asdict(vb.config)
         assert (va.level, va.alpha, va.accuracy, va.rel_active_params) == (
             vb.level, vb.alpha, vb.accuracy, vb.rel_active_params)
+
+
+def test_rwkv6_ladder_and_table():
+    """rwkv6: channel-mix width 7168 down to 2560 at alpha 0.35, 18 of 24
+    layers at levels 4-5, and finite analytic rates without an attention
+    layer, equal to the JAX package's under its constants."""
+    cfg = configs.get_config("rwkv6-1.6b")
+    pool = VariantPool(cfg)
+    assert [v.config.d_ff for v in pool.variants] == [7168, 6144, 4992, 3968, 3200, 2560]
+    assert [v.config.num_layers for v in pool.variants] == [24] * 4 + [18] * 2
+    nodes = [prof.NodeProfile(n.name, n.chips, n.capability) for n in DEFAULT_NODES]
+    t = prof.ProfilingTable(pool, nodes, seq_len=512)
+    assert np.isfinite(t.perf).all() and (t.perf > 0).all()
+    jnodes = [jprof.NodeProfile(n.name, n.chips, n.capability) for n in DEFAULT_NODES]
+    jt = jprof.ProfilingTable(JaxVariantPool(jconfigs.get_config("rwkv6-1.6b")),
+                              jnodes, seq_len=512)
+    ref_t = prof.ProfilingTable(pool, nodes, seq_len=512, hw=REFERENCE_HW)
+    np.testing.assert_array_equal(ref_t.perf, jt.perf)
 
 
 def _tables(seq_len=512, hw=REFERENCE_HW):
@@ -234,6 +253,21 @@ def test_serve_main_smoke_cpu(policy, capsys):
         assert eng.cfg.d_ff == pool[lvl].config.d_ff
         assert eng.cfg.num_layers == pool[lvl].config.num_layers
         assert eng.ecfg.use_kernels and eng.device.type == "cpu"
+
+
+def test_serve_main_smoke_cpu_rwkv6(capsys):
+    report = serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                         "--dtype", "float32", "--requests", "3", "--disconnect",
+                         "--prompt-len", "12", "--decode-steps", "3",
+                         "--max-len", "24", "--batch", "2"])
+    assert "arch=rwkv6-1.6b" in capsys.readouterr().out
+    assert report["runs"] and report["disconnected"] == ["slice-b"]
+    smoke = configs.get_smoke_config("rwkv6-1.6b")
+    for r in report["runs"]:
+        assert r["tokens"].shape == (2, 3) and r["finite"]
+        assert 0 <= r["tokens"].min() and r["tokens"].max() < smoke.vocab_size
+    for eng in report["engines"].values():
+        assert eng.cfg.attention_kind == "none" and eng.ecfg.use_kernels
 
 
 def test_engine_pool_is_lazy_and_seeded():

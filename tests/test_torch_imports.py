@@ -43,6 +43,7 @@ def _run(code, cwd=ROOT):
 def test_modules_found():
     for expected in ("repro_torch.kernels.flash_attention",
                      "repro_torch.kernels.decode_attention",
+                     "repro_torch.kernels.rwkv6_wkv", "repro_torch.models.ssm",
                      "repro_torch.kernels.ops", "repro_torch.kernels._build",
                      "repro_torch.models.convert", "repro_torch.serving.engine",
                      "repro_torch.launch.serve", "repro_torch.sched.policies",
@@ -118,7 +119,8 @@ def test_kernel_build_needs_the_compiler():
     if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is present")
     assert [p.name for p in _build.sources()] == ["decode_attention.cu",
-                                                  "flash_attention.cu"]
+                                                  "flash_attention.cu",
+                                                  "rwkv6_wkv.cu"]
     assert _build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()

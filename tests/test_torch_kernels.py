@@ -1,8 +1,8 @@
-"""Port kernels on the CPU: the plain PyTorch versions of the two attention
-kernels and the ``ops`` dispatch layer, held against the JAX package's
+"""Port kernels on the CPU: the plain PyTorch versions of the attention and
+WKV kernels and the ``ops`` dispatch layer, held against the JAX package's
 oracles (``repro.kernels.ref``) and its Pallas kernels in interpret mode, on
 the same numpy inputs. Tolerances are the reference's own: 5e-5 in fp32,
-2e-2 in bf16."""
+2e-2 in bf16, four times both for the WKV recurrence."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,9 +11,11 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.rwkv6_wkv import rwkv6_wkv as jax_wkv
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rwkv6_wkv as wkv_k
 
 from _torch_util import as_np, to_jax, to_torch
 
@@ -208,3 +210,78 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     odd = torch.zeros(2, 8, 4, 17)[..., 1:]
     assert fa_k._aligned_view(odd).is_contiguous()
     assert fa_k.launches == 0 and dec_k.launches == 0   # the CPU never launches
+    assert wkv_k.launches == 0
+
+
+def _wkv_inputs(seed, bh, s, dk, dv):
+    """As ``tests/test_kernels.py`` draws them: decays in (0, 1), small k, u."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((bh, s, dk))
+    k = rng.standard_normal((bh, s, dk)) * 0.3
+    v = rng.standard_normal((bh, s, dv))
+    w = 1.0 / (1.0 + np.exp(-rng.standard_normal((bh, s, dk))))
+    u = rng.standard_normal((bh, dk)) * 0.1
+    return tuple(x.astype(np.float32) for x in (r, k, v, w, u))
+
+
+def _close4(got, want, bf16):
+    tol = 4 * TOL[bf16]
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", [(4, 64, 32, 32, 16),
+                                              (2, 128, 64, 64, 64)])
+def test_rwkv6_wkv_plain_vs_jax_oracle_and_pallas(bh, s, dk, dv, chunk, bf16):
+    """The JAX kernel test's shapes: the plain version against the JAX oracle
+    and the Pallas kernel in interpret mode, and the port's oracle against
+    the JAX one."""
+    ins = _wkv_inputs(8, bh, s, dk, dv)
+    t_in = [to_torch(x, bf16) for x in ins]
+    j_in = [to_jax(x, bf16) for x in ins]
+    y, st = wkv_k.rwkv6_wkv(*t_in)
+    assert y.shape == (bh, s, dv) and y.dtype == t_in[0].dtype
+    assert st.shape == (bh, dk, dv) and st.dtype == torch.float32
+    y_ref, st_ref = jref.rwkv6_wkv_ref(*j_in)
+    _close4(y, y_ref, bf16)
+    _close4(st, st_ref, bf16)
+    p_y, p_st = jax_wkv(*j_in, interpret=True, chunk=chunk)
+    _close4(y, p_y, bf16)
+    _close4(st, p_st, bf16)
+    o_y, o_st = ref.rwkv6_wkv_ref(*t_in)
+    assert o_y.dtype == t_in[0].dtype and o_st.dtype == torch.float32
+    _close4(o_y, y_ref, bf16)
+    _close4(o_st, st_ref, bf16)
+
+
+@pytest.mark.parametrize("bh,s,dk,dv", [(2, 200, 16, 16), (3, 1, 16, 8),
+                                        (2, 37, 24, 40)],
+                         ids=["ragged-s200", "s1-dk16-dv8", "s37-dk24-dv40"])
+def test_rwkv6_wkv_ragged_against_oracle(bh, s, dk, dv):
+    """S not a multiple of any tile, S = 1, Dk != Dv. Held against the JAX
+    oracle only: the Pallas kernel lets rows past S into its last chunk's
+    state when S > chunk and S % chunk != 0 (at S = 200, chunk 128 its
+    s_final is NaN), which the port must not copy."""
+    ins = _wkv_inputs(9, bh, s, dk, dv)
+    y, st = wkv_k.rwkv6_wkv(*(to_torch(x) for x in ins))
+    assert torch.isfinite(st).all() and torch.isfinite(y).all()
+    y_ref, st_ref = jref.rwkv6_wkv_ref(*(to_jax(x) for x in ins))
+    _close4(y, y_ref, False)
+    _close4(st, st_ref, False)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_ops_rwkv6_wkv(bf16):
+    """``ops.rwkv6_wkv`` with and without ``force_ref`` matches the JAX
+    oracle; u may come in fp32 beside bf16 inputs, as the model hands it."""
+    ins = _wkv_inputs(10, 6, 48, 16, 16)
+    want = jref.rwkv6_wkv_ref(*(to_jax(x, bf16) for x in ins[:4]), to_jax(ins[4]))
+    t_in = [to_torch(x, bf16) for x in ins[:4]] + [to_torch(ins[4])]
+    for force in (False, True):
+        ops.force_ref(force)
+        try:
+            got = ops.rwkv6_wkv(*t_in)
+        finally:
+            ops.force_ref(False)
+        _close4(got[0], want[0], bf16)
+        _close4(got[1], want[1], bf16)

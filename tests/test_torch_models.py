@@ -9,20 +9,22 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models.attention import gqa_scores_softmax as jax_gqa_scores_softmax
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import forward, init_params
 from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import gqa_scores_softmax
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import ParamSpec
 
-from _torch_util import as_np, numpy_params, tree_to_jax, tree_to_numpy
+from _torch_util import (as_np, numpy_params, to_jax, to_torch, tree_to_jax,
+                         tree_to_numpy)
 
 ARCHS = ["phi4-mini-3.8b", "qwen3-32b", "gemma2-2b", "llava-next-mistral-7b",
-         "musicgen-medium"]
-NOT_PORTED = ["mixtral-8x7b", "deepseek-v3-671b", "jamba-1.5-large-398b",
-              "rwkv6-1.6b"]
+         "musicgen-medium", "rwkv6-1.6b"]
+NOT_PORTED = ["mixtral-8x7b", "deepseek-v3-671b", "jamba-1.5-large-398b"]
 
 
 def _inputs(cfg, seed, b=2, s=32):
@@ -67,6 +69,50 @@ def test_forward_matches_jax_kernel_path():
         got, _ = forward(cfg, params_from_jax(cfg, tree, device="cpu"),
                          torch.from_numpy(toks), use_kernels=True)
     np.testing.assert_allclose(as_np(got), as_np(want), atol=5e-4, rtol=5e-4)
+
+
+def test_rwkv6_forward_matches_jax_kernel_path():
+    """rwkv6 with the WKV kernel's plain version against the JAX forward with
+    its Pallas kernel in interpret mode."""
+    arch = "rwkv6-1.6b"
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    tree = numpy_params(cfg, seed=16)
+    toks, _ = _inputs(cfg, 17)
+    want, _ = jax_forward(jax_smoke_config(arch).scaled(dtype="float32"),
+                          tree_to_jax(tree), np.asarray(toks), use_kernels=True)
+    with torch.inference_mode():
+        got, _ = forward(cfg, params_from_jax(cfg, tree, device="cpu"),
+                         torch.from_numpy(toks), use_kernels=True)
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("sq,sk,window", [(64, 64, None), (48, 48, 16), (1, 80, None)],
+                         ids=["prefill-causal", "prefill-window", "decode"])
+def test_gqa_scores_softmax_bf16_matches_jax(sq, sk, window):
+    """bf16 operands, fp32 scores: the einsum path rounds no score to bf16,
+    as ``preferred_element_type=float32`` does in the JAX package. Rounding
+    the scores to bf16 before the upcast misses 1e-3 by 0.008 to 0.016 at
+    these shapes."""
+    b, h, kv, d = 2, 8, 2, 64
+    rng = np.random.default_rng(18)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+    if sq == sk:
+        qi, kj = np.arange(sq)[:, None], np.arange(sk)[None, :]
+        mask = kj <= qi
+        if window is not None:
+            mask &= kj > qi - window
+        mask = mask[None]
+    else:   # one query against a cache with 57 valid slots per row
+        mask = np.broadcast_to(np.arange(sk)[None, None, :] < 57, (b, sq, sk))
+    scale = 1.0 / np.sqrt(d)
+    want = jax_gqa_scores_softmax(*(to_jax(x, True) for x in (q, k, v)),
+                                  np.asarray(mask), 0.0, scale)
+    got = gqa_scores_softmax(*(to_torch(x, True) for x in (q, k, v)),
+                             torch.from_numpy(np.ascontiguousarray(mask)), 0.0, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, h, d)
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -22,7 +22,7 @@ from repro_torch.serving.engine import (BatchScheduler, Engine, EngineConfig,
 from _torch_util import as_np, numpy_params, tree_to_jax
 
 ARCHS = ["phi4-mini-3.8b", "qwen3-32b", "gemma2-2b", "llava-next-mistral-7b",
-         "musicgen-medium"]
+         "musicgen-medium", "rwkv6-1.6b"]
 
 
 def _setup(arch, seed, b, s, **scaled):
@@ -123,6 +123,7 @@ GENERATE_CASES = [
     ("gemma2-2b", {"sliding_window": 8}, 6, 14),         # wraps while decoding
     ("gemma2-2b", {"sliding_window": 8}, 13, 12),        # prompt past the window
     ("musicgen-medium", {}, 6, 6),                       # stub frontend, sinusoidal
+    ("rwkv6-1.6b", {}, 12, 8),                           # recurrent state, no cache
 ]
 
 
@@ -144,6 +145,30 @@ def test_generate_matches_jax_engine(arch, scaled, s, steps, use_kernels):
     assert got.shape == (2, steps) and got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
     assert eng.last_stats["finite"] and eng.last_stats["prefill_ms"] > 0
+
+
+@pytest.mark.parametrize("use_kernels", [False, True], ids=["einsum", "kernels"])
+def test_rwkv6_decode_writes_state_in_place(use_kernels):
+    """The RWKV state is fixed-size: ``pad_caches`` passes it through, and a
+    decode step copies the new state into the very tensors it was given."""
+    from repro_torch.models.ssm import RWKVState
+    cfg, toks, _ = _setup("rwkv6-1.6b", 27, 2, 9)
+    eng = Engine(cfg, init_params(cfg, 5, device="cpu"),
+                 EngineConfig(max_len=16, use_kernels=use_kernels), device="cpu")
+    logits, caches, lengths = eng.prefill(toks)
+    st = caches["layers"]["sub0"]
+    nh, hd = cfg.d_model // cfg.ssm.wkv_head_dim, cfg.ssm.wkv_head_dim
+    assert isinstance(st, RWKVState)
+    assert st.wkv.shape == (cfg.num_layers, 2, nh, hd, hd)
+    assert st.wkv.dtype == torch.float32
+    assert st.shift_t.shape == st.shift_c.shape == (cfg.num_layers, 2, cfg.d_model)
+    before = [t.clone() for t in st]
+    leaves = list(st)
+    out, caches2, _ = eng.decode(caches, lengths, torch.argmax(logits, dim=-1))
+    assert caches2 is caches
+    for t, old, b in zip(caches2["layers"]["sub0"], leaves, before):
+        assert t is old
+        assert not torch.equal(t, b)        # the step did write the state
 
 
 def test_generate_deterministic_and_sampled():
@@ -170,6 +195,30 @@ def test_decode_from_an_empty_cache():
     n = cfg.num_layers // 2
     assert caches["layers"]["sub0"].k.shape == (n, 2, 8, cfg.num_kv_heads, cfg.head_dim)
     assert caches["layers"]["sub1"].v.shape == (n, 2, 16, cfg.num_kv_heads, cfg.head_dim)
+    t = torch.from_numpy(toks)
+    with torch.inference_mode():
+        logits, caches, lengths = decode_step(
+            cfg, params, caches, torch.zeros(2, dtype=torch.long), t[:, 0],
+            use_kernels=True)
+        full, _ = forward(cfg, params, t)
+    assert lengths.tolist() == [1, 1]
+    np.testing.assert_allclose(as_np(logits), as_np(full[:, 0]), atol=5e-4, rtol=5e-4)
+
+
+def test_rwkv6_decode_from_an_empty_state():
+    """``init_cache`` gives rwkv6 a zero ``RWKVState`` stacked over the
+    layers; one decode step from it equals the forward pass on that token."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.ssm import RWKVState
+    cfg, toks, _ = _setup("rwkv6-1.6b", 28, 2, 1)
+    params = init_params(cfg, 6, device="cpu")
+    caches = init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    st = caches["layers"]["sub0"]
+    nh, hd = cfg.d_model // cfg.ssm.wkv_head_dim, cfg.ssm.wkv_head_dim
+    assert isinstance(st, RWKVState)
+    assert st.wkv.shape == (cfg.num_layers, 2, nh, hd, hd)
+    assert st.shift_c.shape == (cfg.num_layers, 2, cfg.d_model)
+    assert all(float(t.abs().sum()) == 0.0 for t in st)
     t = torch.from_numpy(toks)
     with torch.inference_mode():
         logits, caches, lengths = decode_step(
