@@ -2,17 +2,19 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py            # everything, as below
-    python3 chip_smoke.py --phase kernels     # or: main, profile [--arch ...]
+    python3 chip_smoke.py --phase kernels     # or: main, train, profile [--arch ...]
 
 Phases, each of which fails the run with a non-zero exit code:
 
 1. print the card (name, power limit) and build the CUDA kernels from the
    sources under ``src/repro_torch/kernels/csrc`` (time printed as set-up);
-2. kernels: flash attention (prefill), decode attention and the RWKV6 WKV
-   recurrence against their plain PyTorch versions on the card, bf16
+2. kernels: flash attention (prefill), decode attention, the RWKV6 WKV
+   recurrence and the flash-attention backward against their plain PyTorch
+   versions on the card, bf16
    (tolerance 2e-2) and fp32 (tolerance 1e-4: the kernels sum in another
-   order than ATen and use expf/tanhf, on values of order 1), four times
-   both for the recurrence as in the reference's tests, at the serving
+   order than ATen and use expf/tanhf, on values of order 1; 5e-5 for the
+   backward, the reference's own), four times both for the recurrence as in
+   the reference's tests, at the serving
    paths' shapes and at awkward ones. The absolute part of a tolerance is
    scaled by the largest reference value where that is below 1 (a decode
    output averaged over hundreds of slots is of order 0.1); each kernel is
@@ -28,7 +30,14 @@ Phases, each of which fails the run with a non-zero exit code:
    a trace and checked just after; the prefill logits of one level are then
    held against the same engine with the kernels off. The first trace's
    engines are freed before the second, so each peak memory is its own;
-4. the ``kernels`` JSON line, the card line, and the final JSON line.
+4. train: phi4-mini-3.8b at full width and depth through
+   ``repro_torch.launch.train.run_training`` (fp32 master weights, bf16
+   compute, remat, batch 8 x 512, 3 AdamW steps), every step checked for a
+   finite loss and grad norm, moved parameters and its launches (K1 twice
+   and K5 once a layer), the last step profiled; then the gradients with the
+   kernels on held against the einsum path (fp32 copies at 2 layers, leaf by
+   leaf; bf16 at full depth, the first step's loss and grad norm);
+5. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
 """
@@ -54,6 +63,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_k  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab_k  # noqa: E402
 from repro_torch.kernels import rwkv6_wkv as wkv_k  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense rates
@@ -61,14 +71,34 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BW = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 WKV_TOL = {dt: 4 * t for dt, t in TOL.items()}   # x4 for the recurrence
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-5}   # the reference's own
 LOGITS_TOL = 2e-2       # prefill logits, kernels on against kernels off, bf16
 LOGITS_TOL_FP32 = 5e-4  # the same in fp32, relative to the largest logit above 1
+# training, kernels on against kernels off. fp32 copies (2 layers): the two
+# paths differ only in the order of their sums, so every gradient leaf is
+# held to the fp32 kernel tolerance, relative to the leaf's largest value.
+# bf16 at full depth, first step: the loss (a mean of per-token CEs, each a
+# difference of logits that the two paths give to within LOGITS_TOL) checks
+# the forward, K1, only. The backward is held by the attention leaves' gradients
+# (wq, wk, wv: K5's dq, dk and dv feed them), leaf by leaf, as the norm of the
+# difference relative to the norm of the einsum path's gradient, and by the
+# global grad norm. Both limits are about 4-8 times the bf16 rounding drift
+# read on an H100: 1.3e-4 on the grad norm; 1.27e-2 on wq and wk and 6.8e-3
+# on wv (wo, which K5 does not feed, drifts by 6.7e-3 too). A K5 that dropped
+# dq or dk would put a leaf near 1.
+GRAD_TOL_FP32 = 1e-4
+TRAIN_LOSS_TOL = LOGITS_TOL
+TRAIN_GNORM_TOL = 1e-3
+ATTN_GRAD_TOL_BF16 = 5e-2
 
 # serving path shapes (phi4-mini-3.8b, batch 8, prompt 512, max_len 1024)
 B, H, KV, D, PROMPT, MAX_LEN = 8, 24, 8, 128, 512, 1024
+# the train phase: batch x PROMPT tokens a step; the last step is profiled
+TRAIN_BATCH, TRAIN_STEPS = 8, 3
 # rwkv6-1.6b: 32 heads of 64 folded with the batch, recurrence in fp32
 WKV_BH, WKV_D = B * 32, 64
-KERNELS = {"flash_attention": fa_k, "decode_attention": dec_k, "rwkv6_wkv": wkv_k}
+KERNELS = {"flash_attention": fa_k, "decode_attention": dec_k, "rwkv6_wkv": wkv_k,
+           "flash_attention_bwd": fab_k}
 
 
 def card_line() -> str:
@@ -392,6 +422,121 @@ def check_wkv(device, timer):
 
 
 # ----------------------------------------------------------------------
+# K5
+def flash_bwd_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, dtype, b, h, kv, sq, s, d, window, softcap, q_offset, causal
+    return [
+        ("train bf16", bf, B, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
+        ("train fp32 b2", f32, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
+        ("g1 d64 bf16", bf, 2, 4, 4, 256, 256, 64, None, 0.0, 0, True),
+        ("g1 d64 fp32", f32, 2, 4, 4, 256, 256, 64, None, 0.0, 0, True),
+        ("g3 d128 ragged s200 bf16", bf, 2, 12, 4, 200, 200, 128, None, 0.0, 0, True),
+        ("g3 d128 ragged s200 fp32", f32, 2, 12, 4, 200, 200, 128, None, 0.0, 0, True),
+        ("g4 window64 softcap30 bf16", bf, 2, 8, 2, 256, 256, 128, 64, 30.0, 0, True),
+        ("g4 window64 softcap30 fp32", f32, 2, 8, 2, 256, 256, 128, 64, 30.0, 0, True),
+        ("q_offset 128 bf16", bf, 2, 4, 2, 128, 256, 64, None, 0.0, 128, True),
+        ("q_offset 100 window 70 fp32", f32, 2, 4, 2, 90, 190, 128, 70, 0.0, 100, True),
+        ("smoke d16 s32 bf16", bf, 2, 4, 2, 32, 32, 16, None, 0.0, 0, True),
+        ("smoke d16 s32 fp32", f32, 2, 4, 2, 32, 32, 16, None, 0.0, 0, True),
+        ("d16 window 8 softcap 5 fp32", f32, 2, 4, 2, 40, 40, 16, 8, 5.0, 0, True),
+        ("d256 softcap50 bf16", bf, 1, 8, 4, 256, 256, 256, None, 50.0, 0, True),
+        ("d256 window64 ragged fp32", f32, 1, 8, 4, 200, 200, 256, 64, 0.0, 0, True),
+        ("non-causal ragged fp32", f32, 1, 4, 4, 100, 77, 64, None, 0.0, 0, False),
+        ("non-causal ragged bf16", bf, 1, 6, 2, 100, 77, 64, None, 0.0, 0, False),
+    ]
+
+
+def _bwd_inputs(gen, b, h, kv, sq, s, d, dt, device, **kw):
+    """q, k, v, dout in the model's layout (transposed views, as ops hands
+    them over), and lse / delta from the forward's plain version."""
+    q = _rand(gen, (b, sq, h, d), dt, device).transpose(1, 2)
+    k = _rand(gen, (b, s, kv, d), dt, device).transpose(1, 2)
+    v = _rand(gen, (b, s, kv, d), dt, device).transpose(1, 2)
+    dout = _rand(gen, (b, sq, h, d), dt, device).transpose(1, 2)
+    out, lse = fa_k.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = (dout.float() * out.float()).sum(-1)
+    return q, k, v, dout, lse, delta
+
+
+def check_flash_bwd(device, timer):
+    gen = torch.Generator(device=device).manual_seed(5)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for (name, dt, b, h, kv, sq, s, d, window, cap, off, causal) in flash_bwd_cases():
+        kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+        ins = _bwd_inputs(gen, b, h, kv, sq, s, d, dt, device, **kw)
+        got = fab_k.flash_attention_bwd(*ins, **kw)
+        torch.cuda.synchronize()
+        want = fab_k.flash_attention_bwd_plain(*ins, **kw)
+        errs = []
+        for what, x, y, ref_in in zip(("dq", "dk", "dv"), got, want, ins[:3]):
+            assert x.shape == ref_in.shape and x.dtype == dt, (what, x.shape, x.dtype)
+            errs.append(_check(f"flash_bwd[{name}] {what}", x, y, BWD_TOL[dt]))
+        worst[dt] = max(worst[dt], *errs)
+        print(f"  flash_bwd {name:30s} dq {errs[0]:.3e}  dk {errs[1]:.3e}  dv {errs[2]:.3e}")
+
+    # timing at the training shape (phi4-mini-3.8b, batch 8 x 512, bf16)
+    dt = torch.bfloat16
+    ins = _bwd_inputs(gen, B, H, KV, PROMPT, PROMPT, D, dt, device)
+    got = fab_k.flash_attention_bwd(*ins)
+    want = fab_k.flash_attention_bwd_plain(*ins)
+    err = max(_check(f"flash_bwd[timed] {w}", x, y, BWD_TOL[dt])
+              for w, x, y in zip(("dq", "dk", "dv"), got, want))
+    ms = timer(lambda: fab_k.flash_attention_bwd(*ins))
+    plain_ms = timer(lambda: fab_k.flash_attention_bwd_plain(*ins))
+    fins = [t.float() for t in ins]
+    fp32_ms = timer(lambda: fab_k.flash_attention_bwd(*fins))
+    del fins
+    # library yardstick: the backward of SDPA, timed as forward + backward
+    # minus forward on the same q, k, v, dout
+    q, k, v, dout = (t.detach().requires_grad_(True) for t in ins[:4])
+    try:
+        F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+        method = "sdpa(enable_gqa) fwd+bwd minus fwd"
+    except (TypeError, RuntimeError):
+        ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)  # noqa: E731
+        method = "sdpa(repeated kv) fwd+bwd minus fwd"
+
+    def fwd_bwd():
+        q.grad = k.grad = v.grad = None
+        sdpa().backward(ins[3])
+
+    fwd_bwd()
+    # two bf16 computations of the same gradient: twice the tolerance
+    _check("flash_bwd[timed] vs library dq", got[0], q.grad, 2 * BWD_TOL[dt])
+    with torch.no_grad():
+        fwd_ms = timer(sdpa)
+    library_ms = timer(fwd_bwd) - fwd_ms
+    del q, k, v, dout
+    es = ins[0].element_size()
+    n_q, n_kv = B * H * PROMPT * D, B * KV * PROMPT * D
+    nbytes = (3 * n_q + 4 * n_kv) * es + 2 * 4 * B * H * PROMPT  # q,dout,dq; k,v,dk,dv; lse,delta
+    # the function needs 5 products a visible pair (q.k, dout.v, dv, dq, dk);
+    # the two-kernel design computes q.k and dout.v in both kernels, 7 in all
+    pair_flops = 2 * D * B * H * _visible_pairs(PROMPT, PROMPT, True, None, 0)
+    flops, design_flops = 5 * pair_flops, 7 * pair_flops
+    t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:153",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
+        "library_ms": library_ms, "library_method": method, "library_fwd_ms": fwd_ms,
+        "fp32_path_ms": fp32_ms,
+        "shape": f"q/dout({B},{H},{PROMPT},{D}) kv({B},{KV},{PROMPT},{D}) bf16 causal",
+        "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
+        "design_flops": design_flops,
+        "design_flops_ms": design_flops / PEAK_FLOPS[dt] * 1e3,
+        "max_abs_err_all_bf16": worst[torch.bfloat16],
+        "max_abs_err_all_fp32": worst[torch.float32],
+    }
+
+
+# ----------------------------------------------------------------------
 def run_trace(device, args, arch):
     """One request trace through ``launch.serve``'s entry points at full
     width. Every kernel's launch count is set to 0 just before it and read
@@ -474,7 +619,7 @@ def main_path(device, args):
     assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model) == (H, KV, D, 3072)
     report, counts, layers = run_trace(device, args, cfg.name)
     want = {"flash_attention": layers, "decode_attention": layers * args.decode_steps,
-            "rwkv6_wkv": 0}
+            "rwkv6_wkv": 0, "flash_attention_bwd": 0}
     assert counts == want, f"launches {counts} != layers x prefills / steps {want}"
     # bf16 activations through up to 32 layers: the kernel path and the
     # einsum path round at other places. The limit is a few times what they
@@ -490,7 +635,8 @@ def main_path(device, args):
     assert (cfg.d_model // cfg.ssm.wkv_head_dim, cfg.ssm.wkv_head_dim) == (
         WKV_BH // B, WKV_D)
     report, counts, layers = run_trace(device, args, cfg.name)
-    want = {"flash_attention": 0, "decode_attention": 0, "rwkv6_wkv": layers}
+    want = {"flash_attention": 0, "decode_attention": 0, "rwkv6_wkv": layers,
+            "flash_attention_bwd": 0}
     assert counts == want, f"launches {counts} != layers x prefills {want}"
     # Both recurrences run in fp32 and differ only in the order of their
     # sums, but in bf16 a last-bit difference flips roundings that 24 layers
@@ -504,6 +650,221 @@ def main_path(device, args):
     assert diff <= tol, f"kernel and einsum paths disagree in fp32: {diff} > {tol}"
     out["rwkv6_wkv"] = counts["rwkv6_wkv"]
     return out
+
+
+def _probe(params):
+    """A few elements of every kind of leaf, to see that a step moved them."""
+    lay = params["layers"]["sub0"]
+    return {
+        "embedding": params["embed"]["embedding"][:4, :8],
+        "final_norm": params["final_norm"][:8],
+        "norm_mixer": lay["norm_mixer"][0, :8],
+        "wq": lay["attn"]["wq"][0, :4, 0, :4],
+        "w_down": lay["mlp"]["w_down"][-1, :4, :4],
+    }
+
+
+def _profile_rows(prof):
+    rows = []
+    for e in prof.key_averages():
+        # kernel rows only: an operator row repeats its kernels' device time
+        # and no named range (the profiler puts those on the device timeline too)
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("train."):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def train_phase(device, args):
+    """phi4-mini-3.8b trained at full width and depth through
+    ``launch.train.run_training``: fp32 master weights, bf16 compute, remat,
+    batch ``TRAIN_BATCH`` x 512 from the synthetic stream, ``TRAIN_STEPS``
+    steps. Every step is checked (finite loss and grad norm, parameters that
+    moved, K1 = 2 x layers and K5 = layers launches: remat runs each layer's
+    forward twice). Then the gradients with the kernels on are held against
+    the einsum path: leaf by leaf in fp32 copies at full width and 2 layers;
+    at full depth in bf16, the first step's loss and grad norm and the
+    attention leaves' gradients. Returns the launch counts of the training
+    run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, to_device
+    from repro_torch.launch import train as train_launch
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    cfg = get_config("phi4-mini-3.8b")
+    n_layers, batch, steps = cfg.num_layers, TRAIN_BATCH, TRAIN_STEPS
+    rec = {"events": [], "loss": [], "gnorm": [], "prev": None, "counts": None,
+           "prof": None, "prof_wall": None}
+
+    def counts():
+        return {name: mod.launches for name, mod in KERNELS.items()}
+
+    def on_step(i, state, metrics):
+        snap = {k: v.detach().clone() for k, v in _probe(state.params).items()}
+        now = counts()
+        if metrics is not None:
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            assert np.isfinite(loss) and np.isfinite(gnorm), (i, loss, gnorm)
+            still = [k for k in snap if torch.equal(snap[k], rec["prev"][k])]
+            assert not still, f"step {i}: parameters did not move: {still}"
+            delta = {k: now[k] - rec["counts"][k] for k in now}
+            want = {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers,
+                    "decode_attention": 0, "rwkv6_wkv": 0}
+            assert delta == want, f"step {i}: launches {delta} != {want}"
+            rec["loss"].append(loss)
+            rec["gnorm"].append(gnorm)
+            print(f"  train step {i}: loss {loss:.5f}  grad norm {gnorm:.5f}  "
+                  f"launches {delta}")
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        rec["events"].append(ev)
+        if rec["prof"] is not None:                 # end of the profiled step
+            torch.cuda.synchronize()
+            rec["prof_wall"] = (time.perf_counter() - rec["prof_t0"]) * 1e3
+            rec["prof"].__exit__(None, None, None)
+            rec["prof_done"], rec["prof"] = rec["prof"], None
+        elif metrics is not None and i == steps - 2:   # profile the last step
+            rec["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            rec["prof"].__enter__()
+            rec["prof_t0"] = time.perf_counter()
+        rec["prev"], rec["counts"] = snap, now
+
+    for mod in KERNELS.values():
+        mod.launches = 0
+    fab_k.copied_bytes = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    losses = train_launch.run_training(
+        cfg, device=device, steps=steps, global_batch=batch, seq_len=PROMPT,
+        seed=args.seed, remat=True, use_kernels=True, log_every=1, verbose=True,
+        on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    total = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert len(losses) == steps and total["flash_attention_bwd"] == steps * n_layers
+    ev = rec["events"]
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
+    clean = step_ms[1:-1] or step_ms[-1:]          # neither warm-up nor profiled
+    ms = statistics.median(clean)
+    print(f"train phi4-mini-3.8b: {steps} steps of {batch} x {PROMPT} tokens, full width "
+          f"and depth, bf16 compute, fp32 master, remat; step ms "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} (first: warm-up, last: profiled); "
+          f"{ms:.1f} ms a step, {batch * PROMPT * 1e3 / ms:.0f} tokens/s; "
+          f"peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); wall {wall:.1f} s; "
+          f"launches {total}; K5 operand copies {fab_k.copied_bytes} bytes")
+    assert peak < 80e9, f"peak memory {peak} above the card's 80 GB"
+    rows = _profile_rows(rec["prof_done"])
+    if not rows:
+        raise AssertionError("the profiler saw no device time in the train step")
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"profile[train step {steps - 1}]: wall {rec['prof_wall']:.1f} ms (profiler on), "
+          f"device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / rec['prof_wall']):.3f}")
+    for dev_us, count, key in rows[:12]:
+        print(f"    {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    cats = {"K1 flash_fwd": 0.0, "K5 bwd_dq/bwd_dkv": 0.0, "matmul (cuBLAS)": 0.0,
+            "other (ATen elementwise, copies, reductions)": 0.0}
+    for dev_us, _, key in rows:
+        if "flash_fwd" in key:
+            cats["K1 flash_fwd"] += dev_us
+        elif "bwd_dq" in key or "bwd_dkv" in key:
+            cats["K5 bwd_dq/bwd_dkv"] += dev_us
+        elif re.search(r"nvjet|gemm|cutlass|sm90_xmma|cublas", key, re.I):
+            cats["matmul (cuBLAS)"] += dev_us
+        else:
+            cats["other (ATen elementwise, copies, reductions)"] += dev_us
+    print("  by kind: " + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e3 / busy:.1%})"
+                                    for k, v in cats.items()))
+    # the range's own device time is its span on the device timeline, which
+    # the optimizer's stream of large elementwise kernels keeps busy
+    opt_ms = max([(getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0))
+                  for e in rec["prof_done"].key_averages()
+                  if e.key == "train.apply_updates"] or [0]) / 1e3
+    print(f"  optimizer (span of the range train.apply_updates on the device): "
+          f"{opt_ms:.1f} ms; loss, forward and backward: the other "
+          f"{busy - opt_ms:.1f} ms of busy time")
+    first_loss, first_gnorm = rec["loss"][0], rec["gnorm"][0]
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=PROMPT,
+                                      global_batch=batch, seed=args.seed))
+    tokens = to_device(data.batch(0), device)
+
+    # full depth, bf16, the first step from the run's initial state: its loss
+    # and grad norm with the kernels on are the run's own; the attention
+    # leaves' gradients come from one more first step on each path
+    attn = {}
+    for on in (True, False):
+        tcfg = ts.TrainConfig(remat=True, use_kernels=on)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = ts.init_train_state(cfg, tcfg, gen, device=device).params
+        loss, _, grads = ts.loss_and_grads(cfg, tcfg, params, tokens)
+        if not on:
+            off_loss, off_gnorm = float(loss), float(opt_lib.global_norm(grads))
+        attn[on] = grads["layers"]["sub0"]["attn"]
+        del params, grads, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    d_loss, d_gnorm = abs(first_loss - off_loss), abs(first_gnorm - off_gnorm) / off_gnorm
+    rel = {k: ((attn[True][k] - attn[False][k]).norm() / attn[False][k].norm()).item()
+           for k in sorted(attn[False])}
+    print(f"train bf16 full depth, first step, kernels on / off: loss {first_loss:.6f} / "
+          f"{off_loss:.6f} (diff {d_loss:.2e}, checks the forward only), grad norm "
+          f"{first_gnorm:.6f} / {off_gnorm:.6f} (rel diff {d_gnorm:.2e}); attention "
+          f"gradients, |on - off| / |off| by leaf: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    del attn
+    assert d_loss <= TRAIN_LOSS_TOL, f"loss kernels on/off {d_loss} > {TRAIN_LOSS_TOL}"
+    assert d_gnorm <= TRAIN_GNORM_TOL, f"grad norm on/off {d_gnorm} > {TRAIN_GNORM_TOL}"
+    for k in ("wq", "wk", "wv"):
+        assert rel[k] <= ATTN_GRAD_TOL_BF16, (
+            f"bf16 gradient of {k}, kernels on/off: {rel[k]} > {ATTN_GRAD_TOL_BF16}")
+
+    # fp32 copies at full width, 2 layers: every gradient leaf
+    cfg2 = cfg.scaled(num_layers=2, dtype="float32")
+    params = ts.init_train_state(cfg2, tcfg, torch.Generator(device=device).manual_seed(
+        args.seed), device=device).params
+    got = {}
+    for on in (True, False):
+        tc = ts.TrainConfig(remat=True, use_kernels=on)
+        loss, _, grads = ts.loss_and_grads(cfg2, tc, params, tokens)
+        got[on] = (float(loss), grads)
+    worst, worst_key = 0.0, None
+    for key, (g_on, g_off) in zip(
+            _leaf_keys(got[True][1]), zip(opt_lib._leaves(got[True][1]),
+                                          opt_lib._leaves(got[False][1]))):
+        rel = (g_on - g_off).abs().max().item() / max(g_off.abs().max().item(), 1e-30)
+        assert rel <= GRAD_TOL_FP32, f"fp32 gradient {key}: rel diff {rel} > {GRAD_TOL_FP32}"
+        if rel >= worst:
+            worst, worst_key = rel, key
+    print(f"train fp32 copies, full width, 2 layers, kernels on / off: loss "
+          f"{got[True][0]:.6f} / {got[False][0]:.6f}; worst gradient leaf {worst_key} "
+          f"rel diff {worst:.2e} (limit {GRAD_TOL_FP32})")
+    del got, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _leaf_keys(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_keys(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1]
 
 
 def profile_phase(device, args):
@@ -559,7 +920,8 @@ def profile_phase(device, args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "main", "profile"), default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "main", "train", "profile"),
+                    default="all")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--decode-steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
@@ -593,19 +955,26 @@ def main(argv=None):
         timer = Timer(device)
         print("kernels against their plain versions on the card:")
         kernels = [check_flash(device, timer), check_decode(device, timer),
-                   check_wkv(device, timer)]
+                   check_wkv(device, timer), check_flash_bwd(device, timer)]
         for kd in kernels:
             lib = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.4f} ms"
             print(f"  {kd['name']}: {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']})")
         del timer
         torch.cuda.empty_cache()
+    counts = {}
     if args.phase in ("all", "main"):
-        counts = main_path(device, args)
+        counts.update(main_path(device, args))
+    if args.phase in ("all", "train"):
+        train_counts = train_phase(device, args)
+        counts["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
+        counts["flash_attention_train"] = train_counts["flash_attention"]
+    if args.phase == "all":
         for kd in kernels:
             kd["launches"] = counts[kd["name"]]
             if kd["launches"] <= 0:
                 raise AssertionError(f"{kd['name']} was not launched on the main path")
+        kernels[0]["launches_train"] = counts["flash_attention_train"]
 
     if args.phase == "profile":
         profile_phase(device, args)

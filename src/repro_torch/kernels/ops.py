@@ -4,8 +4,13 @@ On a CUDA tensor the wrappers launch the hand-written kernels; on a CPU
 tensor they run the kernels' plain PyTorch versions. ``force_ref()`` routes
 everything to the fp32 oracles in ``ref`` instead (tests use it to
 cross-check the dispatch layer itself). One device, so there are no
-sharded branches here. Inference only: the backward kernels are not ported
-yet.
+sharded branches here.
+
+``flash_attention`` is differentiable: its forward is the flash kernel (K1)
+with the log-sum-exp kept, its backward the flash backward kernels (K5), as
+the JAX package's ``custom_vjp`` pairs them. Decode attention and the WKV
+recurrence have no backward kernel (the JAX package defines none) and raise
+under autograd.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
+from repro_torch.kernels import flash_attention_bwd as fab_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_wkv as wkv_k
 
@@ -26,21 +32,49 @@ def force_ref(on: bool = True):
     _FORCE_REF = on
 
 
+class _Flash(torch.autograd.Function):
+    """K1 forward (saving ``lse``), K5 backward, on (B, H, S, D) views."""
+
+    @staticmethod
+    def forward(ctx, qt, kt, vt, window, softcap, scale):
+        out, lse = fa_k.flash_attention(qt, kt, vt, causal=True, window=window,
+                                        softcap=softcap, scale=scale,
+                                        return_lse=True)
+        ctx.save_for_backward(qt, kt, vt, out, lse)
+        ctx.opts = (window, softcap, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qt, kt, vt, out, lse = ctx.saved_tensors
+        window, softcap, scale = ctx.opts
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        dq, dk, dv = fab_k.flash_attention_bwd(qt, kt, vt, dout, lse, delta,
+                                               causal=True, window=window,
+                                               softcap=softcap, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None, attn_softcap: float = 0.0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Model layout q: (B,S,H,D), k/v: (B,S,KV,D) -> (B,S,H,D). The kernel
-    reads the transposed views through their strides: no copy is made."""
-    assert not (torch.is_grad_enabled() and q.requires_grad), \
-        "ops.flash_attention is inference only"
+    """Model layout q: (B,S,H,D), k/v: (B,S,KV,D) -> (B,S,H,D). The kernels
+    read the transposed views through their strides: no copy is made, and
+    the gradients come back in the model's layout."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if _FORCE_REF:
         out = ref.flash_attention_ref(qt, kt, vt, causal=True, window=window,
                                       softcap=attn_softcap, scale=scale)
     else:
-        out = fa_k.flash_attention(qt, kt, vt, causal=True, window=window,
-                                   softcap=attn_softcap, scale=scale)
+        out = _Flash.apply(qt, kt, vt, window, attn_softcap, scale)
     return out.transpose(1, 2)
+
+
+def _no_grad(x: torch.Tensor, what: str):
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"ops.{what} has no backward: the JAX package defines no backward "
+            f"kernel for it (serving only); train with use_kernels=False")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,8 +83,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Model layout q: (B,1,H,D), k/v: (B,S,KV,D), mask: (B,S) -> (B,1,H,D).
     The kernel consumes the cache's native layout; the split over S and the
     merge of the partial softmax stats happen inside its wrapper."""
-    assert not (torch.is_grad_enabled() and q.requires_grad), \
-        "ops.decode_attention is inference only"
+    _no_grad(q, "decode_attention")
     b, _, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -68,6 +101,7 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor):
     """Folded layout r/k/w: (BH,S,Dk), v: (BH,S,Dv), u: (BH,Dk) ->
     (y (BH,S,Dv), s_final (BH,Dk,Dv) fp32)."""
+    _no_grad(r, "rwkv6_wkv")
     if _FORCE_REF:
         return ref.rwkv6_wkv_ref(r, k, v, w, u)
     return wkv_k.rwkv6_wkv(r, k, v, w, u)

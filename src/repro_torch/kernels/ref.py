@@ -39,6 +39,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, s, d).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            dout: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None, softcap: float = 0.0,
+                            scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`flash_attention_ref` by torch autograd, in fp32,
+    cast back to the inputs' dtypes."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_ref(qf, kf, vf, causal=causal, window=window,
+                                  softcap=softcap, scale=scale)
+        dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf), dout.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: torch.Tensor, *, softcap: float = 0.0,
                          scale: Optional[float] = None) -> torch.Tensor:

@@ -63,3 +63,29 @@ def params_from_jax(cfg: ModelConfig, tree_of_numpy: Dict[str, Any],
             out[name] = _convert(sub, tree_of_numpy[name], name, plan.get(name),
                                  device, dtype)
     return out
+
+
+def train_state_from_jax(cfg: ModelConfig, jax_state, device=None):
+    """The JAX package's ``TrainState`` (params, opt = (step, mu, nu)), every
+    leaf a numpy array, as the port's ``TrainState``: fp32 params, moments in
+    their own dtype (bf16 leaves come as ml_dtypes arrays and stay bf16),
+    ``step`` an int32 scalar tensor."""
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    device = resolve_device(device)
+    mu0 = np.asarray(_first_leaf(jax_state.opt.mu))
+    mdt = torch.bfloat16 if mu0.dtype.kind not in "fiu" else resolve_dtype(str(mu0.dtype))
+    opt = opt_lib.OptState(
+        step=torch.tensor(int(np.asarray(jax_state.opt.step)), dtype=torch.int32,
+                          device=device),
+        mu=params_from_jax(cfg, jax_state.opt.mu, device=device, dtype=mdt),
+        nu=params_from_jax(cfg, jax_state.opt.nu, device=device, dtype=mdt))
+    return ts.TrainState(params=params_from_jax(cfg, jax_state.params, device=device),
+                         opt=opt)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = tree[sorted(tree)[0]]
+    return tree

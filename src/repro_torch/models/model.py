@@ -3,11 +3,12 @@
 For ``frontend_stub`` archs (musicgen, llava-next) the modality frontend is a
 stub: callers pass precomputed frame/patch embeddings which are projected and
 prepended to the token embeddings; positions cover the concatenated stream.
-The training losses are not ported yet.
+``loss_fn`` is the training loss (next-token cross-entropy); the MTP head of
+deepseek is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -40,12 +41,14 @@ def _embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
 
 
 def _backbone(cfg: ModelConfig, params, x, positions, caches, lengths, *,
-              mode: str, use_kernels: bool):
+              mode: str, use_kernels: bool, remat: bool = False,
+              remat_policy: str = "nothing"):
     new_caches = {}
     for g in tfm.layer_plan(cfg):
         c = caches[g.name] if caches is not None else None
         x, c_out = tfm.group_apply(cfg, g, params[g.name], x, positions, c,
-                                   lengths, mode=mode, use_kernels=use_kernels)
+                                   lengths, mode=mode, use_kernels=use_kernels,
+                                   remat=remat, remat_policy=remat_policy)
         if c_out is not None:
             new_caches[g.name] = c_out
     if mode == "decode":
@@ -68,6 +71,46 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
         x = x[:, embeds.shape[1]:]
     logits = lm_logits(cfg, params["embed"], x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return logz - gold
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
+            use_kernels: bool = False, remat: bool = False,
+            remat_policy: str = "nothing", aux_weight: float = 0.01,
+            mtp_weight: float = 0.1) -> Tuple[torch.Tensor, Dict]:
+    """Next-token CE (+ ``aux_weight`` x the MoE load-balance term, which is
+    0 for the dense archs the port runs). ``batch``: ``tokens`` (B, S), and
+    optionally ``loss_mask`` (B, S) and ``embeds`` (stub frontends). Returns
+    (total, {"ce", "aux"}), as the JAX package's ``loss_fn``."""
+    if cfg.mtp_depth > 0:
+        raise NotImplementedError(
+            "the multi-token-prediction loss is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")
+    tokens = batch["tokens"]
+    embeds = batch.get("embeds")
+    x = _embed_inputs(cfg, params, tokens, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, _ = _backbone(cfg, params, x, positions, None, None, mode="dense",
+                     use_kernels=use_kernels, remat=remat,
+                     remat_policy=remat_policy)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.frontend_stub:
+        x = x[:, embeds.shape[1]:]
+    logits = lm_logits(cfg, params["embed"], x)
+
+    targets = tokens[:, 1:]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    ce = _ce(logits[:, :-1], targets) * mask[:, 1:]
+    loss = ce.sum() / mask[:, 1:].sum().clamp_min(1.0)
+    metrics = {"ce": loss, "aux": aux}
+    return loss + aux_weight * aux, metrics
 
 
 # ----------------------------------------------------------------------

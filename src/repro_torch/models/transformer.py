@@ -20,6 +20,7 @@ import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -233,23 +234,66 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ----------------------------------------------------------------------
 # Group application (loop over the stacked units)
 def _unit_params(tree, u: int):
+    """Unit ``u``'s parameters: ``leaf[u]`` of a stacked leaf, or the u-th
+    entry of a leaf that :func:`split_units` already cut into units."""
     if isinstance(tree, dict):
         return {k: _unit_params(v, u) for k, v in tree.items()}
     return tree[u]
 
 
+def split_units(params_stacked, grads_stacked):
+    """Per-unit autograd leaves of one group for a training step.
+
+    Taking ``stacked[u]`` under autograd would make the backward of every
+    unit allocate a zero tensor of the whole stacked leaf (12.9 GB a unit at
+    phi4-mini's width) to put one slice in. Here each unit's parameters are
+    views ``stacked[u]`` detached into leaves whose ``.grad`` is preset to
+    the view ``grads_stacked[u]``: the backward adds a unit's gradient in
+    place into its slice of the stacked gradient, with no full-size
+    temporary. ``grads_stacked`` has the tree of ``params_stacked`` and must
+    start at zero. Returns that tree with every leaf a tuple of per-unit
+    leaves (``_unit_params`` indexes it like a stacked leaf)."""
+    if isinstance(params_stacked, dict):
+        return {k: split_units(v, grads_stacked[k]) for k, v in params_stacked.items()}
+    units = []
+    for p, g in zip(params_stacked.unbind(0), grads_stacked.unbind(0)):
+        leaf = p.detach().requires_grad_(True)
+        leaf.grad = g
+        units.append(leaf)
+    return tuple(units)
+
+
 def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
-                caches_stacked, lengths, *, mode: str, use_kernels: bool):
+                caches_stacked, lengths, *, mode: str, use_kernels: bool,
+                remat: bool = False, remat_policy: str = "nothing"):
     """Returns (x, caches_stacked | None).
 
     decode: each unit's cache is a view ``stacked[u]``; the attention writes
     its K/V row in place, and a new RWKV state is copied into the view, so
     the stacked caches that come back are the ones that went in. prefill: the
     per-unit caches are stacked, K/V to ``(L, B, S, KV, D)``, RWKV states to
-    ``(L, B, ...)``."""
+    ``(L, B, ...)``. dense (training): ``remat`` recomputes each unit in the
+    backward (policy "nothing", as in the JAX package); ``params_stacked``
+    may come from :func:`split_units`."""
+    if remat and mode != "dense":
+        raise ValueError(f"remat recomputes dense (training) units only, not mode={mode!r}")
+    if remat and remat_policy == "save_attn":
+        raise NotImplementedError(
+            'remat_policy="save_attn" is not ported yet (ROADMAP.md Queue 1 '
+            'item 9); use "nothing"')
     collected = {f"sub{i}": [] for i in range(len(group.pattern))}
     for u in range(group.n_units):
         p_unit = _unit_params(params_stacked, u)
+        if remat:
+            def unit(h, p_unit=p_unit):
+                for i, sl in enumerate(group.pattern):
+                    h, _ = sublayer_apply(cfg, sl, p_unit[f"sub{i}"], h, positions,
+                                          None, lengths, mode=mode,
+                                          use_kernels=use_kernels)
+                return h
+            # non-reentrant: the backward reruns the whole unit from x
+            x = torch.utils.checkpoint.checkpoint(unit, x, use_reentrant=False)
+            continue
         for i, sl in enumerate(group.pattern):
             c_in = None
             if mode == "decode":

@@ -76,3 +76,63 @@ def test_rwkv6_wkv_kernel_vs_plain(device, dtype, bh, s, dk, dv):
     tol = 4 * TOL[dtype]
     torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(st, want_st, atol=tol, rtol=tol)
+
+
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,s,d,window,softcap,q_offset", [
+    (2, 24, 8, 512, 512, 128, None, 0.0, 0), (2, 4, 4, 200, 200, 64, None, 0.0, 0),
+    (2, 8, 2, 256, 256, 128, 64, 30.0, 0), (2, 4, 2, 90, 190, 128, 70, 0.0, 100),
+    (2, 4, 2, 32, 32, 16, None, 0.0, 0), (1, 8, 4, 200, 200, 256, 64, 50.0, 0)])
+def test_flash_bwd_kernel_vs_plain(device, dtype, b, h, kv, sq, s, d, window,
+                                   softcap, q_offset):
+    from repro_torch.kernels import flash_attention_bwd as fab_k
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, dout = (torch.randn((b, sq, h, d), generator=gen, device=device)
+               .to(dtype).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=device)
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    kw = dict(window=window, softcap=softcap, q_offset=q_offset)
+    out, lse = fa_k.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = (dout.float() * out.float()).sum(-1)
+    before = fab_k.launches
+    got = fab_k.flash_attention_bwd(q, k, v, dout, lse, delta, **kw)
+    assert fab_k.launches == before + 1
+    want = fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta, **kw)
+    tol = BWD_TOL[dtype]
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == dtype
+        atol = tol * min(1.0, w_.float().abs().max().item())
+        torch.testing.assert_close(g_.float(), w_.float(), atol=atol, rtol=tol)
+
+
+def test_ops_flash_backward_launches_k5(device):
+    """The differentiable ``ops.flash_attention`` runs K1 forward and K5
+    backward on the card, and its gradients match the einsum path's."""
+    from repro_torch.kernels import flash_attention_bwd as fab_k
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=device).manual_seed(4)
+    q, k, v = (torch.randn((2, 128, n, 64), generator=gen, device=device,
+                           requires_grad=True) for n in (8, 2, 2))
+    f0, b0 = fa_k.launches, fab_k.launches
+    ops.flash_attention(q, k, v, attn_softcap=20.0).square().sum().backward()
+    assert (fa_k.launches - f0, fab_k.launches - b0) == (1, 1)
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    ops.force_ref(True)
+    try:
+        ops.flash_attention(q, k, v, attn_softcap=20.0).square().sum().backward()
+    finally:
+        ops.force_ref(False)
+    for g_, t in zip(got, (q, k, v)):
+        torch.testing.assert_close(g_, t.grad, atol=1e-4, rtol=1e-4)
+    # K5 reads the transposed views in place and writes the model's layout
+    qt, kt, vt = (t.detach().transpose(1, 2) for t in (q, k, v))
+    out, lse = fa_k.flash_attention(qt, kt, vt, return_lse=True)
+    copied = fab_k.copied_bytes
+    grads = fab_k.flash_attention_bwd(qt, kt, vt, out, lse, (out * out).sum(-1))
+    assert fab_k.copied_bytes == copied
+    assert all(g_.transpose(1, 2).is_contiguous() for g_ in grads)

@@ -13,11 +13,13 @@ import torch
 import repro_torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_launch
 from repro_torch.models import init_cache, init_params
 from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import resolve_device
 from repro_torch.serving.engine import Engine
+from repro_torch.train import train_step as ts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -48,7 +50,11 @@ def test_modules_found():
                      "repro_torch.models.convert", "repro_torch.serving.engine",
                      "repro_torch.launch.serve", "repro_torch.sched.policies",
                      "repro_torch.core.resource_manager",
-                     "repro_torch.analysis.sanitize"):
+                     "repro_torch.analysis.sanitize",
+                     "repro_torch.kernels.flash_attention_bwd",
+                     "repro_torch.train.optimizer", "repro_torch.train.train_step",
+                     "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
+                     "repro_torch.launch.train"):
         assert expected in MODULES
 
 
@@ -109,6 +115,12 @@ def test_entry_points_raise_without_cuda():
         serve.main(["--smoke", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.make_prompts(16, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ts.init_train_state(cfg, ts.TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_launch.run_training(cfg, steps=1, global_batch=2, seq_len=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_launch.main(["--smoke", "--steps", "1"])
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -120,6 +132,7 @@ def test_kernel_build_needs_the_compiler():
         pytest.skip("nvcc is present")
     assert [p.name for p in _build.sources()] == ["decode_attention.cu",
                                                   "flash_attention.cu",
+                                                  "flash_attention_bwd.cu",
                                                   "rwkv6_wkv.cu"]
     assert _build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
     with pytest.raises(RuntimeError, match="nvcc"):
