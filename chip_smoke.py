@@ -8,13 +8,13 @@ Phases, each of which fails the run with a non-zero exit code:
 
 1. print the card (name, power limit) and build the CUDA kernels from the
    sources under ``src/repro_torch/kernels/csrc`` (time printed as set-up);
-2. kernels: flash attention (prefill), decode attention, the RWKV6 WKV
-   recurrence and the flash-attention backward against their plain PyTorch
-   versions on the card, bf16
+2. kernels: flash attention (prefill), decode attention, the Mamba
+   selective scan, the RWKV6 WKV recurrence and the flash-attention
+   backward against their plain PyTorch versions on the card, bf16
    (tolerance 2e-2) and fp32 (tolerance 1e-4: the kernels sum in another
    order than ATen and use expf/tanhf, on values of order 1; 5e-5 for the
-   backward, the reference's own), four times both for the recurrence as in
-   the reference's tests, at the serving
+   backward, the reference's own), four times both for the two recurrences
+   as in the reference's tests, at the serving
    paths' shapes and at awkward ones. The absolute part of a tolerance is
    scaled by the largest reference value where that is below 1 (a decode
    output averaged over hundreds of slots is of order 0.1); each kernel is
@@ -26,10 +26,15 @@ Phases, each of which fails the run with a non-zero exit code:
    disconnect in the middle, every share run through the engine of its
    accuracy level (batch 8, prompt 512, 16 decode steps, max_len 1024, bf16):
    phi4-mini-3.8b (flash and decode attention), then rwkv6-1.6b (the WKV
-   recurrence in every prefill). Every launch count is set to 0 just before
-   a trace and checked just after; the prefill logits of one level are then
-   held against the same engine with the kernels off. The first trace's
-   engines are freed before the second, so each peak memory is its own;
+   recurrence in every prefill), then jamba-1.5-large at every published
+   width, cut to one 8-layer super-block and 8 of 16 experts to fit the card
+   (the selective scan in each of its 7 Mamba layers of every prefill, flash
+   and decode attention in its attention layer; one engine resident at a
+   time). Every launch count is set to 0 just before a trace and checked
+   just after; the prefill logits of one level are then held against the
+   same engine with the kernels off (jamba: its first Mamba layer in fp32
+   copies; the whole model's bf16 difference is printed). Each trace's
+   engines are freed before the next, so each peak memory is its own;
 4. train: phi4-mini-3.8b at full width and depth through
    ``repro_torch.launch.train.run_training`` (fp32 master weights, bf16
    compute, remat, batch 8 x 512, 3 AdamW steps), every step checked for a
@@ -65,12 +70,13 @@ from repro_torch.kernels import decode_attention as dec_k  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab_k  # noqa: E402
 from repro_torch.kernels import rwkv6_wkv as wkv_k  # noqa: E402
+from repro_torch.kernels import ssm_scan as ssm_k  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BW = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-WKV_TOL = {dt: 4 * t for dt, t in TOL.items()}   # x4 for the recurrence
+WKV_TOL = {dt: 4 * t for dt, t in TOL.items()}   # x4 for the recurrences
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-5}   # the reference's own
 LOGITS_TOL = 2e-2       # prefill logits, kernels on against kernels off, bf16
 LOGITS_TOL_FP32 = 5e-4  # the same in fp32, relative to the largest logit above 1
@@ -97,8 +103,12 @@ B, H, KV, D, PROMPT, MAX_LEN = 8, 24, 8, 128, 512, 1024
 TRAIN_BATCH, TRAIN_STEPS = 8, 3
 # rwkv6-1.6b: 32 heads of 64 folded with the batch, recurrence in fp32
 WKV_BH, WKV_D = B * 32, 64
-KERNELS = {"flash_attention": fa_k, "decode_attention": dec_k, "rwkv6_wkv": wkv_k,
-           "flash_attention_bwd": fab_k}
+# jamba-1.5-large: 64 q heads / 8 kv heads of 128 (G = 8); Mamba d_inner
+# 16384 (expand 2 x d_model 8192), d_state 16; u and dt in bf16
+JAMBA_H, SSM_DIN, SSM_N = 64, 16384, 16
+JAMBA = "jamba-1.5-large-398b"
+KERNELS = {"flash_attention": fa_k, "decode_attention": dec_k, "ssm_scan": ssm_k,
+           "rwkv6_wkv": wkv_k, "flash_attention_bwd": fab_k}
 
 
 def card_line() -> str:
@@ -106,6 +116,35 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return float(out.splitlines()[0]) * 1e6
+
+
+def jamba_cut_config():
+    """jamba-1.5-large at every published width, cut to what one card holds:
+    one 8-layer super-block (the least ``layer_plan`` allows: 7 Mamba
+    layers, attention at index 3, MoE on layers 1, 3, 5 and 7) and 8 of its
+    16 experts a MoE layer. 25.79 B parameters at level 0, 51.6 GB in bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(JAMBA)
+    return cfg.scaled(num_layers=cfg.hybrid_block_size,
+                      moe=dataclasses.replace(cfg.moe, num_experts=8))
+
+
+def reduced_line() -> str:
+    from repro_torch.configs import get_config
+
+    full, cut = get_config(JAMBA), jamba_cut_config()
+    return (f"reduced: num_layers {full.num_layers} -> {cut.num_layers}, "
+            f"num_experts {full.moe.num_experts} -> {cut.moe.num_experts}")
 
 
 class Timer:
@@ -172,6 +211,7 @@ def flash_cases():
     return [
         ("main bf16", bf, B, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
         ("main fp32 b2", f32, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
+        ("jamba g8 bf16", bf, B, JAMBA_H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
         ("smoke d16 s32 bf16", bf, 2, 4, 2, 32, 32, 16, None, 0.0, 0, True),
         ("smoke d16 s32 fp32", f32, 2, 4, 2, 32, 32, 16, None, 0.0, 0, True),
         ("d16 window 8", f32, 2, 4, 2, 40, 40, 16, 8, 0.0, 0, True),
@@ -254,6 +294,8 @@ def decode_cases():
     return [
         ("main bf16", bf, B, KV, 3, MAX_LEN, D, 0.0, [PROMPT + 1 + i for i in range(B)], None),
         ("main fp32", f32, B, KV, 3, MAX_LEN, D, 0.0, [PROMPT + 1 + i for i in range(B)], None),
+        ("jamba g8 bf16", bf, B, KV, JAMBA_H // KV, MAX_LEN, D, 0.0,
+         [PROMPT + 1 + i for i in range(B)], None),
         ("lengths 1,S-1,S g1 bf16", bf, 3, 4, 1, 256, 128, 0.0, [1, 255, 256], None),
         ("lengths 1,S-1,S g8 fp32", f32, 3, 2, 8, 192, 64, 0.0, [1, 191, 192], None),
         ("g3 single split", bf, 2, 8, 3, 512, 128, 0.0, [300, 512], 1),
@@ -422,6 +464,97 @@ def check_wkv(device, timer):
 
 
 # ----------------------------------------------------------------------
+# K3
+def ssm_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, dtype, b, s, d_in, n
+    return [
+        ("serving bf16", bf, B, PROMPT, SSM_DIN, SSM_N),
+        ("serving fp32 b2", f32, 2, PROMPT, SSM_DIN, SSM_N),
+        ("smoke bf16", bf, 2, 32, 128, 8),
+        ("smoke fp32", f32, 2, 32, 128, 8),
+        ("ragged s200 fp32", f32, 2, 200, 512, SSM_N),
+        ("ragged s200 bf16", bf, 2, 200, 512, SSM_N),
+        ("d_in 1000 fp32", f32, 2, 64, 1000, SSM_N),
+        ("d_in 1000 bf16", bf, 3, 40, 1000, SSM_N),
+        ("s2 fp32", f32, 4, 2, 384, SSM_N),
+        ("s2 bf16", bf, 4, 2, 384, SSM_N),
+        ("n5 s33 d_in 200 fp32", f32, 2, 33, 200, 5),
+        ("n3 s17 bf16", bf, 1, 17, 130, 3),
+    ]
+
+
+def _ssm_inputs(gen, b, s, d_in, n, dt_, device):
+    """As the reference's kernel test draws them: dt = softplus(N(0,1)/2),
+    a = -exp(N(0,1) * 0.3); u and dt in the working dtype, B, C, a and
+    d_skip in fp32 (as the model hands them over)."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    u = rn(b, s, d_in).to(dt_)
+    dt = F.softplus(rn(b, s, d_in) * 0.5).to(dt_)
+    bm, cm = rn(b, s, n), rn(b, s, n)
+    a = -torch.exp(rn(d_in, n) * 0.3)
+    d_skip = 1.0 + 0.1 * rn(d_in)
+    return u, dt, bm, cm, a, d_skip
+
+
+def check_ssm_scan(device, timer):
+    gen = torch.Generator(device=device).manual_seed(4)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for (name, dt_, b, s, d_in, n) in ssm_cases():
+        ins = _ssm_inputs(gen, b, s, d_in, n, dt_, device)
+        y, h = ssm_k.ssm_scan(*ins)
+        torch.cuda.synchronize()
+        ref_y, ref_h = ssm_k.ssm_scan_plain(*ins)
+        assert y.shape == (b, s, d_in) and y.dtype == dt_
+        assert h.shape == (b, d_in, n) and h.dtype == torch.float32
+        e1 = _check(f"ssm_scan[{name}] y", y, ref_y, WKV_TOL[dt_])
+        e2 = _check(f"ssm_scan[{name}] h_final", h, ref_h, WKV_TOL[dt_])
+        worst[dt_] = max(worst[dt_], e1, e2)
+        print(f"  ssm_scan {name:29s} y err {e1:.3e}  h_final err {e2:.3e}")
+        del ins, y, h, ref_y, ref_h
+
+    # timing at the serving shape (jamba prefill: batch 8 x 512, bf16 u/dt)
+    dt_ = torch.bfloat16
+    ins = _ssm_inputs(gen, B, PROMPT, SSM_DIN, SSM_N, dt_, device)
+    y, h = ssm_k.ssm_scan(*ins)
+    ref_y, ref_h = ssm_k.ssm_scan_plain(*ins)
+    err = max(_check("ssm_scan[timed] y", y, ref_y, WKV_TOL[dt_]),
+              _check("ssm_scan[timed] h_final", h, ref_h, WKV_TOL[dt_]))
+    del y, h, ref_y, ref_h
+    ms = timer(lambda: ssm_k.ssm_scan(*ins))
+    plain_ms = timer(lambda: ssm_k.ssm_scan_plain(*ins), warmup=1, iters=5)
+    f32_ins = [t.float() for t in ins]
+    fp32_ms = timer(lambda: ssm_k.ssm_scan(*f32_ins))
+    del f32_ins
+    es = ins[0].element_size()
+    steps = B * PROMPT * SSM_DIN * SSM_N            # state-element steps
+    nbytes = (3 * B * PROMPT * SSM_DIN * es          # u, dt, y
+              + 2 * 4 * B * PROMPT * SSM_N           # B, C
+              + 4 * SSM_DIN * SSM_N + 4 * SSM_DIN    # a, d_skip
+              + 4 * B * SSM_DIN * SSM_N)             # h_final
+    # per state element and step: dt * a, exp, da * h + du * B (2), h * C
+    flops = 5 * steps
+    t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+    # one exp a state-element step on the special-function units: 16 a clock
+    # on each SM, at the card's largest SM clock
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sfu_ms = steps / (16 * sms * max_sm_clock_hz()) * 1e3
+    return {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:61",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
+        "library_ms": None, "fp32_path_ms": fp32_ms, "sfu_exp_bound_ms": sfu_ms,
+        "shape": f"u/dt({B},{PROMPT},{SSM_DIN}) bf16, B/C({B},{PROMPT},{SSM_N}) fp32",
+        "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
+        "max_abs_err_all_bf16": worst[torch.bfloat16],
+        "max_abs_err_all_fp32": worst[torch.float32],
+    }
+
+
+# ----------------------------------------------------------------------
 # K5
 def flash_bwd_cases():
     bf, f32 = torch.bfloat16, torch.float32
@@ -537,25 +670,38 @@ def check_flash_bwd(device, timer):
 
 
 # ----------------------------------------------------------------------
-def run_trace(device, args, arch):
+def _launches_per_run(cfg, steps):
+    """The launches one prefill and ``steps`` decode steps of ``cfg`` make:
+    K1 once and K2 once a step for every attention layer, K3 for every
+    Mamba layer, K4 for every RWKV layer."""
+    from repro_torch.models import transformer as tfm
+
+    n = {"gqa": 0, "mamba": 0, "rwkv": 0}
+    for g in tfm.layer_plan(cfg):
+        for sl in g.pattern:
+            n[sl.mixer] += g.n_units
+    return {"flash_attention": n["gqa"], "decode_attention": n["gqa"] * steps,
+            "ssm_scan": n["mamba"], "rwkv6_wkv": n["rwkv"], "flash_attention_bwd": 0}
+
+
+def run_trace(device, args, cfg, max_engines=None):
     """One request trace through ``launch.serve``'s entry points at full
     width. Every kernel's launch count is set to 0 just before it and read
-    just after. Returns (report, counts, layers run over all prefills)."""
-    from repro_torch.configs import get_config
+    just after, and held against the layers of the levels that ran. Returns
+    (report, counts)."""
     from repro_torch.core.variants import VariantPool
     from repro_torch.launch import serve
 
-    cfg = get_config(arch)
     pool = VariantPool(cfg)
     for mod in KERNELS.values():
         mod.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     report = serve.serve_trace(
-        arch, policy="proportional", requests=args.requests, disconnect=True,
-        smoke=False, device=device, dtype="bfloat16", batch=B,
+        cfg.name, cfg=cfg, policy="proportional", requests=args.requests,
+        disconnect=True, smoke=False, device=device, dtype="bfloat16", batch=B,
         prompt_len=PROMPT, decode_steps=args.decode_steps, max_len=MAX_LEN,
-        seed=args.seed, verbose=True)
+        seed=args.seed, max_engines=max_engines, verbose=True)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = {name: mod.launches for name, mod in KERNELS.items()}
@@ -568,16 +714,27 @@ def run_trace(device, args, arch):
         assert r["tokens"].shape == (B, args.decode_steps), r["tokens"].shape
         assert r["tokens"].min() >= 0 and r["tokens"].max() < cfg.vocab_size
         assert r["finite"], f"non-finite logits at level {r['level']}"
-    layers = sum(pool[r["level"]].config.num_layers for r in runs)
+    want = {k: 0 for k in KERNELS}
+    for r in runs:
+        for k, v in _launches_per_run(pool[r["level"]].config, args.decode_steps).items():
+            want[k] += v
+    assert counts == want, f"{cfg.name}: launches {counts} != layers x prefills / steps {want}"
     levels = sorted({r["level"] for r in runs})
-    print(f"{arch}: {len(report['results'])} requests, {len(runs)} shares run, "
-          f"levels {levels}, launches {counts}, wall {wall:.1f} s")
+    print(f"{cfg.name}: {len(report['results'])} requests, {len(runs)} shares run "
+          f"(= prefills), levels {levels}, {report['engine_builds']} engine builds, "
+          f"launches {counts}, wall {wall:.1f} s")
     pre = statistics.median(r["prefill_ms"] for r in runs)
     dec = statistics.median(r["decode_ms_per_step"] for r in runs)
-    print(f"{arch}: prefill {pre:.2f} ms (batch {B} x {PROMPT}), "
+    print(f"{cfg.name}: prefill {pre:.2f} ms (batch {B} x {PROMPT}), "
           f"{dec:.3f} ms per decode step, {B * 1e3 / dec:.1f} tokens/s decode, "
-          f"peak memory {peak / 2**30:.2f} GiB")
-    return report, counts, layers
+          f"peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    by_level = {}
+    for r in runs:
+        by_level.setdefault(r["level"], []).append((r["prefill_ms"], r["decode_ms_per_step"]))
+    print(f"{cfg.name}: by level (prefill ms, ms per step): "
+          + "; ".join(f"{lv}: " + ", ".join(f"({p:.1f}, {d:.2f})" for p, d in v)
+                      for lv, v in sorted(by_level.items())))
+    return report, counts
 
 
 def _tree_float(tree):
@@ -586,14 +743,13 @@ def _tree_float(tree):
     return tree.float()
 
 
-def kernels_vs_einsum(device, args, report, fp32=False):
-    """Prefill logits of the trace's lowest level with ``use_kernels`` on
-    and off, on the same weights (``fp32``: copies of them in float32).
-    Returns (max abs difference, max |logit|)."""
+def kernels_vs_einsum(device, args, engine, fp32=False):
+    """Prefill logits of ``engine``'s weights with ``use_kernels`` on and
+    off (``fp32``: copies of them in float32). Returns (max abs difference,
+    max |logit|)."""
     from repro_torch.launch import serve
 
-    lvl = min(report["engines"])
-    cfg, params = report["engines"][lvl].cfg, report["engines"][lvl].params
+    cfg, params = engine.cfg, engine.params
     if fp32:
         cfg, params = cfg.scaled(dtype="float32"), _tree_float(params)
     toks = serve.make_prompts(cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
@@ -605,50 +761,146 @@ def kernels_vs_einsum(device, args, report, fp32=False):
     assert logits[0].shape == (B, cfg.vocab_size) and torch.isfinite(logits[0]).all()
     diff = (logits[0] - logits[1]).abs().max().item()
     scale = logits[1].abs().max().item()
-    print(f"{cfg.name}: prefill logits kernels vs einsum path, level {lvl}, "
+    print(f"{cfg.name}: prefill logits kernels vs einsum path, "
           f"{cfg.dtype}: max abs diff {diff:.6f} (max |logit| {scale:.3f})")
     return diff, scale
 
 
+def _lowest_engine(report):
+    lvl = min(report["engines"])
+    print(f"(kernels on/off on the level-{lvl} engine of the trace)")
+    return report["engines"][lvl]
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def jamba_checks(device, args, cfg):
+    """Kernels on against off for the cut jamba, on the level-0 engine
+    rebuilt from its seed (the trace's bounded pool has dropped it).
+
+    Printed, not held: the whole model's bf16 prefill logits, and the share
+    of tokens whose expert pair at the first MoE layer differs between the
+    two paths (in bf16 a top-2 choice near a tie flips on a last-bit
+    difference upstream). Held: the first Mamba layer at full width on fp32
+    copies of its leaves and the real hidden state that reaches it, with the
+    kernel on and off, to LOGITS_TOL_FP32 relative to the largest output
+    above 1."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens
+
+    eng = serve.EnginePool(cfg, device=device, dtype="bfloat16", max_len=MAX_LEN,
+                           seed=args.seed, max_engines=1).engine_for(0)
+    toks = serve.make_prompts(eng.cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
+    route = moe_mod.route_topk
+    first, current = {}, [None]
+
+    def recording(c, router_logits):   # keeps the first MoE layer's choice
+        gates, idx = route(c, router_logits)
+        first.setdefault(current[0], idx.sort(dim=-1).values)
+        return gates, idx
+
+    logits = []
+    moe_mod.route_topk = recording
+    try:
+        for on in (True, False):
+            current[0] = on
+            logits.append(serve.Engine(eng.cfg, eng.params,
+                                       serve.EngineConfig(max_len=MAX_LEN, use_kernels=on),
+                                       device=device).prefill(toks)[0])
+    finally:
+        moe_mod.route_topk = route
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in logits)
+    diff = (logits[0] - logits[1]).abs().max().item()
+    scale = logits[1].abs().max().item()
+    flipped = (first[True] != first[False]).any(dim=-1).float().mean().item()
+    print(f"{cfg.name}: bf16 prefill logits kernels vs einsum path, level 0: max abs "
+          f"diff {diff:.6f} (max |logit| {scale:.3f}); expert pair differs at the first "
+          f"MoE layer for {flipped:.4%} of {first[True].shape[0]} tokens (printed, not held)")
+    del logits, first
+
+    # fp32 copies of the first Mamba layer and the hidden state it sees
+    g = tfm.layer_plan(cfg)[0]
+    i = next(k for k, sl in enumerate(g.pattern) if sl.mixer == "mamba")
+    sub = eng.params[g.name][f"sub{i}"]
+    p32 = {k: v[0].float() for k, v in sub["mamba"].items()}
+    cfg32 = eng.cfg.scaled(dtype="float32")
+    with torch.inference_mode():
+        x = embed_tokens(eng.cfg, eng.params["embed"], toks, torch.bfloat16)
+        h = tfm._norm(eng.cfg, sub["norm_mixer"][0], x).float()
+        outs = [ssm.mamba_apply_dense(cfg32, p32, h, None, use_kernel=on)
+                for on in (True, False)]
+    torch.cuda.synchronize()
+    (y_on, st_on), (y_off, st_off) = outs
+    d_y = (y_on - y_off).abs().max().item()
+    s_y = y_off.abs().max().item()
+    d_h = (st_on.h - st_off.h).abs().max().item()
+    s_h = st_off.h.abs().max().item()
+    nbytes = sum(v.numel() * 4 for v in p32.values())
+    print(f"{cfg.name}: fp32 copies of layer {i} (Mamba, {nbytes / 1e9:.2f} GB), kernel on "
+          f"/ off: output max abs diff {d_y:.3e} (max |out| {s_y:.3f}), h_final "
+          f"{d_h:.3e} (max |h| {s_h:.3f})")
+    tol = LOGITS_TOL_FP32 * max(1.0, s_y)
+    assert d_y <= tol, f"Mamba layer kernel on/off in fp32: {d_y} > {tol}"
+    assert d_h <= LOGITS_TOL_FP32 * max(1.0, s_h), f"Mamba h_final on/off in fp32: {d_h}"
+    del eng, p32, outs, x, h
+    _free()
+
+
 def main_path(device, args):
-    """Both traces, one after the other. Returns the launch counts of each
-    kernel, read right after the trace that runs it."""
+    """The three traces, one after the other. Returns the launch counts of
+    each kernel, read right after each trace that runs it."""
     from repro_torch.configs import get_config
 
+    out = {}
     cfg = get_config("phi4-mini-3.8b")
     assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model) == (H, KV, D, 3072)
-    report, counts, layers = run_trace(device, args, cfg.name)
-    want = {"flash_attention": layers, "decode_attention": layers * args.decode_steps,
-            "rwkv6_wkv": 0, "flash_attention_bwd": 0}
-    assert counts == want, f"launches {counts} != layers x prefills / steps {want}"
+    report, counts = run_trace(device, args, cfg)
     # bf16 activations through up to 32 layers: the kernel path and the
     # einsum path round at other places. The limit is a few times what they
     # differ by and a tenth of a typical logit.
-    diff, _ = kernels_vs_einsum(device, args, report)
+    diff, _ = kernels_vs_einsum(device, args, _lowest_engine(report))
     assert diff <= LOGITS_TOL, f"kernel and einsum paths disagree: {diff} > {LOGITS_TOL}"
-    out = {k: counts[k] for k in ("flash_attention", "decode_attention")}
+    out["phi4"] = counts
     del report
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
 
     cfg = get_config("rwkv6-1.6b")
     assert (cfg.d_model // cfg.ssm.wkv_head_dim, cfg.ssm.wkv_head_dim) == (
         WKV_BH // B, WKV_D)
-    report, counts, layers = run_trace(device, args, cfg.name)
-    want = {"flash_attention": 0, "decode_attention": 0, "rwkv6_wkv": layers,
-            "flash_attention_bwd": 0}
-    assert counts == want, f"launches {counts} != layers x prefills {want}"
+    report, counts = run_trace(device, args, cfg)
     # Both recurrences run in fp32 and differ only in the order of their
     # sums, but in bf16 a last-bit difference flips roundings that 24 layers
     # of random weights amplify (0.29 on logits of 5.1 on an H100; a 24-layer
     # model of width 256 shows the same on the CPU, 0.09 in bf16 and 4e-5 in
     # fp32). So the bf16 difference is printed and the check is made on fp32
     # copies of the same weights, to the reference's end-to-end 5e-4.
-    kernels_vs_einsum(device, args, report)
-    diff, scale = kernels_vs_einsum(device, args, report, fp32=True)
+    eng = _lowest_engine(report)
+    kernels_vs_einsum(device, args, eng)
+    diff, scale = kernels_vs_einsum(device, args, eng, fp32=True)
     tol = LOGITS_TOL_FP32 * max(1.0, scale)
     assert diff <= tol, f"kernel and einsum paths disagree in fp32: {diff} > {tol}"
-    out["rwkv6_wkv"] = counts["rwkv6_wkv"]
+    out["rwkv6"] = counts
+    del report, eng
+    _free()
+
+    cfg = jamba_cut_config()
+    ssm_cfg = cfg.ssm
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (JAMBA_H, KV, D)
+    assert (ssm_cfg.expand * cfg.d_model, ssm_cfg.d_state) == (SSM_DIN, SSM_N)
+    print(reduced_line())
+    # two levels do not fit on the card together (51.6 + 45.7 GB)
+    report, counts = run_trace(device, args, cfg, max_engines=1)
+    out["jamba"] = counts
+    del report
+    _free()
+    jamba_checks(device, args, cfg)
     return out
 
 
@@ -717,7 +969,7 @@ def train_phase(device, args):
             assert not still, f"step {i}: parameters did not move: {still}"
             delta = {k: now[k] - rec["counts"][k] for k in now}
             want = {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers,
-                    "decode_attention": 0, "rwkv6_wkv": 0}
+                    "decode_attention": 0, "ssm_scan": 0, "rwkv6_wkv": 0}
             assert delta == want, f"step {i}: launches {delta} != {want}"
             rec["loss"].append(loss)
             rec["gnorm"].append(gnorm)
@@ -869,15 +1121,21 @@ def _leaf_keys(tree, prefix=""):
 
 def profile_phase(device, args):
     """Where the time goes (not part of the default run): ``torch.profiler``
-    over one prefill and four decode steps of the full-width level-0 engine.
-    Prints wall time, the device's busy time and idle share, and the kernels
-    that take most of the device time."""
+    over one prefill and four decode steps of the full-width level-0 engine
+    (jamba: of the cut config the trace runs). Prints wall time, the device's
+    busy time and idle share, the kernels that take most of the device time
+    and the busy time by kind."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    cfg = get_config(args.arch)
+    if args.arch == JAMBA:
+        cfg = jamba_cut_config()
+        print(reduced_line())
+    else:
+        cfg = get_config(args.arch)
+    torch.cuda.reset_peak_memory_stats()
     eng = serve.EnginePool(cfg, device=device, dtype="bfloat16", max_len=MAX_LEN,
                            seed=args.seed).engine_for(0)
     toks = serve.make_prompts(cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
@@ -898,24 +1156,33 @@ def profile_phase(device, args):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for e in prof.key_averages():
-            # kernel rows only: an operator row repeats its kernels' device time
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "self_cuda_time_total", 0)
-            if dev_us > 0:
-                rows.append((dev_us, e.count, e.key))
-        rows.sort(reverse=True)
+        rows = _profile_rows(prof)
         busy_ms = sum(r[0] for r in rows) / 1e3
         print(f"profile[{name}]: wall {wall_ms:.2f} ms (profiler on), device busy "
               f"{busy_ms:.2f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
         if not rows:
             raise AssertionError("the profiler saw no device time")
-        for dev_us, count, key in rows[:10]:
+        for dev_us, count, key in rows[:12]:
             print(f"    {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+        cats = dict.fromkeys(("K1 flash_fwd", "K2 decode", "K3 ssm scan", "K4 wkv",
+                              "matmul (cuBLAS)",
+                              "other (ATen elementwise, copies, reductions, sort)"), 0.0)
+        for dev_us, _, key in rows:
+            if "flash_fwd" in key:
+                cats["K1 flash_fwd"] += dev_us
+            elif "decode" in key and "kernel" in key:
+                cats["K2 decode"] += dev_us
+            elif "scan_kernel" in key:
+                cats["K3 ssm scan"] += dev_us
+            elif "wkv_kernel" in key:
+                cats["K4 wkv"] += dev_us
+            elif re.search(r"nvjet|gemm|cutlass|sm90_xmma|cublas", key, re.I):
+                cats["matmul (cuBLAS)"] += dev_us
+            else:
+                cats["other (ATen elementwise, copies, reductions, sort)"] += dev_us
+        print("  by kind: " + ", ".join(f"{k} {v / 1e3:.2f} ms ({v / 1e3 / busy_ms:.1%})"
+                                        for k, v in cats.items() if v))
+    print(f"profile: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
 def main(argv=None):
@@ -925,8 +1192,9 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--decode-steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--arch", choices=("phi4-mini-3.8b", "rwkv6-1.6b"),
-                    default="phi4-mini-3.8b", help="the model --phase profile runs")
+    ap.add_argument("--arch", choices=("phi4-mini-3.8b", "rwkv6-1.6b", JAMBA),
+                    default="phi4-mini-3.8b", help="the model --phase profile runs "
+                    f"({JAMBA}: cut to one super-block and 8 experts)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -955,26 +1223,30 @@ def main(argv=None):
         timer = Timer(device)
         print("kernels against their plain versions on the card:")
         kernels = [check_flash(device, timer), check_decode(device, timer),
-                   check_wkv(device, timer), check_flash_bwd(device, timer)]
+                   check_ssm_scan(device, timer), check_wkv(device, timer),
+                   check_flash_bwd(device, timer)]
         for kd in kernels:
             lib = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.4f} ms"
             print(f"  {kd['name']}: {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']})")
         del timer
         torch.cuda.empty_cache()
-    counts = {}
+    paths = {}      # path -> the launch counts read right after it ran
     if args.phase in ("all", "main"):
-        counts.update(main_path(device, args))
+        paths.update(main_path(device, args))
     if args.phase in ("all", "train"):
-        train_counts = train_phase(device, args)
-        counts["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
-        counts["flash_attention_train"] = train_counts["flash_attention"]
+        paths["train"] = train_phase(device, args)
     if args.phase == "all":
+        # each kernel's launches on the path that carries it (K1 and K2: the
+        # first trace), and on every path that ran it
+        own = {"flash_attention": "phi4", "decode_attention": "phi4",
+               "ssm_scan": "jamba", "rwkv6_wkv": "rwkv6", "flash_attention_bwd": "train"}
         for kd in kernels:
-            kd["launches"] = counts[kd["name"]]
+            kd["launches"] = paths[own[kd["name"]]][kd["name"]]
+            kd["launches_by_path"] = {p: c[kd["name"]] for p, c in paths.items()
+                                      if c[kd["name"]]}
             if kd["launches"] <= 0:
                 raise AssertionError(f"{kd['name']} was not launched on the main path")
-        kernels[0]["launches_train"] = counts["flash_attention_train"]
 
     if args.phase == "profile":
         profile_phase(device, args)

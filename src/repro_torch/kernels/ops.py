@@ -8,9 +8,9 @@ sharded branches here.
 
 ``flash_attention`` is differentiable: its forward is the flash kernel (K1)
 with the log-sum-exp kept, its backward the flash backward kernels (K5), as
-the JAX package's ``custom_vjp`` pairs them. Decode attention and the WKV
-recurrence have no backward kernel (the JAX package defines none) and raise
-under autograd.
+the JAX package's ``custom_vjp`` pairs them. Decode attention, the WKV
+recurrence and the selective scan have no backward kernel (the JAX package
+defines none) and raise under autograd.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import flash_attention_bwd as fab_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_wkv as wkv_k
+from repro_torch.kernels import ssm_scan as ssm_k
 
 _FORCE_REF = False
 
@@ -70,8 +71,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2)
 
 
-def _no_grad(x: torch.Tensor, what: str):
-    if torch.is_grad_enabled() and x.requires_grad:
+def _no_grad(x: torch.Tensor, what: str, *more: torch.Tensor):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *more)):
         raise RuntimeError(
             f"ops.{what} has no backward: the JAX package defines no backward "
             f"kernel for it (serving only); train with use_kernels=False")
@@ -105,3 +106,13 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _FORCE_REF:
         return ref.rwkv6_wkv_ref(r, k, v, w, u)
     return wkv_k.rwkv6_wkv(r, k, v, w, u)
+
+
+def ssm_scan(u: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor):
+    """u/dt: (B,S,d_in), bm/cm: (B,S,N), a: (d_in,N), d_skip: (d_in,) ->
+    (y (B,S,d_in) in u.dtype, h_final (B,d_in,N) fp32), from a zero state."""
+    _no_grad(u, "ssm_scan", dt, bm, cm)
+    if _FORCE_REF:
+        return ref.ssm_scan_ref(u, dt, bm, cm, a, d_skip)
+    return ssm_k.ssm_scan(u, dt, bm, cm, a, d_skip)

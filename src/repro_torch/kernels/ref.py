@@ -83,3 +83,20 @@ def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys.append(torch.einsum("bk,bkv->bv", rf[:, t], s + uf[..., :, None] * kv))
         s = wf[:, t, :, None] * s + kv
     return torch.stack(ys, dim=1).to(r.dtype), s
+
+
+def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+                 cm: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor):
+    """u/dt: (B,S,d); bm/cm: (B,S,N); a: (d,N); d_skip: (d,) ->
+    (y (B,S,d) in u.dtype, h_final (B,d,N) fp32)."""
+    uf, dtf = u.float(), dt.float()
+    bf, cf, af = bm.float(), cm.float(), a.float()
+    h = torch.zeros((u.shape[0], u.shape[2], a.shape[1]), dtype=torch.float32,
+                    device=u.device)
+    ys = []
+    for t in range(u.shape[1]):
+        da = torch.exp(dtf[:, t, :, None] * af)
+        h = da * h + (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    y = torch.stack(ys, dim=1)
+    return (y + uf * d_skip.float()).to(u.dtype), h

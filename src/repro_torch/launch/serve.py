@@ -10,20 +10,27 @@ reduced variant configs instead; ``--device cpu`` is the only way onto the
 CPU (there is no silent fallback).
 
 The gateway plans every request over the analytic profiling table of the
-*full* config. Each share then runs through the serving engine of its
-accuracy level: one engine per level, built lazily and shared by all nodes
-that run that level (a full-width variant is several GB; one copy per node
-and level would not fit on one card).
+*full* config (or of the config passed as ``cfg=``, e.g. a depth- and
+expert-cut jamba that fits one card). Each share then runs through the
+serving engine of its accuracy level: one engine per level, built lazily and
+shared by all nodes that run that level (a full-width variant is several GB;
+one copy per node and level would not fit on one card). ``max_engines``
+bounds how many levels stay resident: before a new level is built the least
+recently used engine is dropped, and it is rebuilt from its seed when its
+level comes back.
 """
 from __future__ import annotations
 
 import argparse
+import gc
+from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
+from repro_torch.configs import (ARCH_NAMES, ModelConfig, get_config,
+                                 get_smoke_config)
 from repro_torch.core.cluster import DEFAULT_NODES, SimBackend
 from repro_torch.core.profiling import (H100_SXM, HardwareSpec, NodeProfile,
                                         ProfilingTable)
@@ -68,19 +75,34 @@ def demo_requests(gn: GatewayNode, n: int, seed: int = 0) -> List[InferenceReque
 class EnginePool:
     """One serving engine per accuracy level, built on first use. Weights
     are random, drawn on the device in the working dtype from a generator
-    seeded with ``seed + level``."""
+    seeded with ``seed + level``, so a dropped engine is rebuilt bit for
+    bit. ``max_engines`` (None: no bound) caps the engines kept: before a
+    new level is built, the least recently used engine is dropped and its
+    memory returned to the device."""
 
     def __init__(self, cfg, *, device=None, dtype="bfloat16",
-                 max_len: int = 1024, seed: int = 0):
+                 max_len: int = 1024, seed: int = 0,
+                 max_engines: Optional[int] = None):
+        if max_engines is not None and max_engines < 1:
+            raise ValueError(f"max_engines must be at least 1, got {max_engines}")
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         self.pool = VariantPool(cfg)
         self.ecfg = EngineConfig(max_len=max_len)
         self.seed = seed
-        self.engines: Dict[int, Engine] = {}
+        self.max_engines = max_engines
+        self.engines: Dict[int, Engine] = OrderedDict()   # least recent first
+        self.builds = 0
 
     def engine_for(self, level: int) -> Engine:
-        if level not in self.engines:
+        if level in self.engines:
+            self.engines.move_to_end(level)
+        else:
+            if self.max_engines is not None and len(self.engines) >= self.max_engines:
+                self.engines.popitem(last=False)
+                gc.collect()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
             name = "bfloat16" if self.dtype == torch.bfloat16 else "float32"
             vcfg = self.pool[level].config.scaled(dtype=name)
             gen = torch.Generator(device=self.device).manual_seed(self.seed + level)
@@ -88,6 +110,7 @@ class EnginePool:
                                            device=self.device)
             self.engines[level] = Engine(vcfg, params, self.ecfg,
                                          device=self.device)
+            self.builds += 1
         return self.engines[level]
 
 
@@ -108,7 +131,8 @@ def run_shares(engines: EnginePool, gn: GatewayNode, request: InferenceRequest,
                seed: int = 0) -> List[dict]:
     """The Local Node Inference state with real compute: run every share of
     the request's dispatch through the engine of its accuracy level (the
-    first engine batch of each share; a real group runs them all)."""
+    first engine batch of each share; a real group runs them all). No
+    engine is held between shares, so a bounded pool can free it."""
     d = gn.dispatches[-1]
     runs = []
     for a in d.assignments:
@@ -122,6 +146,7 @@ def run_shares(engines: EnginePool, gn: GatewayNode, request: InferenceRequest,
         out = eng.generate(toks, num_steps=decode_steps)
         runs.append({"rid": request.rid, "node": a.node, "level": a.apx_level,
                      "items": a.items, "tokens": out, **eng.last_stats})
+        del eng
     return runs
 
 
@@ -131,9 +156,16 @@ def serve_trace(arch: str = "phi4-mini-3.8b", *, policy: str = "proportional",
                 prompt_len: Optional[int] = None,
                 decode_steps: Optional[int] = None,
                 max_len: Optional[int] = None, seed: int = 0,
+                cfg: Optional[ModelConfig] = None,
+                max_engines: Optional[int] = None,
                 verbose: bool = True) -> dict:
     """Gateway start-up, a request trace (with an optional node disconnect
-    in the middle, paper Fig. 9), and real inference for every share."""
+    in the middle, paper Fig. 9), and real inference for every share.
+
+    ``cfg`` replaces the arch's own config (``arch`` is then ``cfg.name``):
+    the gateway's profiling table and variant ladder, and the engines unless
+    ``smoke``, are built from it. ``max_engines`` bounds the engines kept
+    resident (see :class:`EnginePool`)."""
     device = resolve_device(device)
     batch = batch or (4 if smoke else 8)
     prompt_len = prompt_len or (16 if smoke else 512)
@@ -141,11 +173,14 @@ def serve_trace(arch: str = "phi4-mini-3.8b", *, policy: str = "proportional",
     max_len = max_len or (64 if smoke else 1024)
     say = print if verbose else (lambda *a, **k: None)
 
-    cfg = get_config(arch)
+    if cfg is None:
+        cfg = get_config(arch)
+    arch = cfg.name
     gn = build_gateway(cfg, policy=policy, seq_len=512, seed=seed)
     reqs = demo_requests(gn, requests, seed=seed)
     engines = EnginePool(get_smoke_config(arch) if smoke else cfg,
-                         device=device, dtype=dtype, max_len=max_len, seed=seed)
+                         device=device, dtype=dtype, max_len=max_len, seed=seed,
+                         max_engines=max_engines)
 
     say(f"policy={policy} arch={arch} device={device} "
         f"{'smoke' if smoke else 'full-width'} variants")
@@ -176,8 +211,8 @@ def serve_trace(arch: str = "phi4-mini-3.8b", *, policy: str = "proportional",
     summary = gn.summary()
     say("summary:", {k: round(v, 4) for k, v in summary.items()})
     return {"gateway": gn, "results": results, "runs": runs,
-            "engines": engines.engines, "disconnected": disconnected,
-            "summary": summary}
+            "engines": engines.engines, "engine_builds": engines.builds,
+            "disconnected": disconnected, "summary": summary}
 
 
 def main(argv=None):

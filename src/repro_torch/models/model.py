@@ -3,8 +3,8 @@
 For ``frontend_stub`` archs (musicgen, llava-next) the modality frontend is a
 stub: callers pass precomputed frame/patch embeddings which are projected and
 prepended to the token embeddings; positions cover the concatenated stream.
-``loss_fn`` is the training loss (next-token cross-entropy); the MTP head of
-deepseek is not ported yet.
+``loss_fn`` is the training loss (next-token cross-entropy plus the MoE
+load-balance term); the MTP head of deepseek is not ported yet.
 """
 from __future__ import annotations
 
@@ -43,34 +43,38 @@ def _embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
 def _backbone(cfg: ModelConfig, params, x, positions, caches, lengths, *,
               mode: str, use_kernels: bool, remat: bool = False,
               remat_policy: str = "nothing"):
+    """Returns (x, caches, aux): ``aux`` sums the MoE load-balance terms of
+    mode 'dense' (0 without MoE layers and in the serving modes)."""
     new_caches = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in tfm.layer_plan(cfg):
         c = caches[g.name] if caches is not None else None
-        x, c_out = tfm.group_apply(cfg, g, params[g.name], x, positions, c,
-                                   lengths, mode=mode, use_kernels=use_kernels,
-                                   remat=remat, remat_policy=remat_policy)
+        x, c_out, aux = tfm.group_apply(cfg, g, params[g.name], x, positions, c,
+                                        lengths, mode=mode, use_kernels=use_kernels,
+                                        remat=remat, remat_policy=remat_policy)
         if c_out is not None:
             new_caches[g.name] = c_out
+        aux_total = aux_total + aux
     if mode == "decode":
         new_caches = caches      # written in place: the same tree goes back
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  zero_centered=cfg.zero_centered_norm)
-    return x, new_caches
+    return x, new_caches, aux_total
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None, *,
             use_kernels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits over token positions, aux_loss);
-    the aux loss is 0 for the dense archs this slice runs."""
+    the aux loss (the MoE load-balance term) is 0 for dense archs."""
     x = _embed_inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, _ = _backbone(cfg, params, x, positions, None, None,
-                     mode="dense", use_kernels=use_kernels)
+    x, _, aux = _backbone(cfg, params, x, positions, None, None,
+                          mode="dense", use_kernels=use_kernels)
     if cfg.frontend_stub:   # logits only over the token region
         x = x[:, embeds.shape[1]:]
     logits = lm_logits(cfg, params["embed"], x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -83,8 +87,8 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             use_kernels: bool = False, remat: bool = False,
             remat_policy: str = "nothing", aux_weight: float = 0.01,
             mtp_weight: float = 0.1) -> Tuple[torch.Tensor, Dict]:
-    """Next-token CE (+ ``aux_weight`` x the MoE load-balance term, which is
-    0 for the dense archs the port runs). ``batch``: ``tokens`` (B, S), and
+    """Next-token CE (+ ``aux_weight`` x the MoE load-balance term, 0 for
+    dense archs). ``batch``: ``tokens`` (B, S), and
     optionally ``loss_mask`` (B, S) and ``embeds`` (stub frontends). Returns
     (total, {"ce", "aux"}), as the JAX package's ``loss_fn``."""
     if cfg.mtp_depth > 0:
@@ -95,10 +99,9 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     embeds = batch.get("embeds")
     x = _embed_inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, _ = _backbone(cfg, params, x, positions, None, None, mode="dense",
-                     use_kernels=use_kernels, remat=remat,
-                     remat_policy=remat_policy)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = _backbone(cfg, params, x, positions, None, None, mode="dense",
+                          use_kernels=use_kernels, remat=remat,
+                          remat_policy=remat_policy)
     if cfg.frontend_stub:
         x = x[:, embeds.shape[1]:]
     logits = lm_logits(cfg, params["embed"], x)
@@ -123,8 +126,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     these into max_len decode caches."""
     x = _embed_inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, caches = _backbone(cfg, params, x, positions, None, None,
-                          mode="prefill", use_kernels=use_kernels)
+    x, caches, _ = _backbone(cfg, params, x, positions, None, None,
+                             mode="prefill", use_kernels=use_kernels)
     logits = lm_logits(cfg, params["embed"], x[:, -1:])
     return logits[:, 0], caches
 
@@ -140,7 +143,7 @@ def decode_step(cfg: ModelConfig, params, caches, lengths: torch.Tensor,
     if cfg.pos_kind == "sinusoidal":
         x = x + sinusoidal_embedding(lengths[:, None], cfg.d_model).to(x.dtype)
     positions = lengths[:, None]
-    x, caches = _backbone(cfg, params, x, positions, caches, lengths,
-                          mode="decode", use_kernels=use_kernels)
+    x, caches, _ = _backbone(cfg, params, x, positions, caches, lengths,
+                             mode="decode", use_kernels=use_kernels)
     logits = lm_logits(cfg, params["embed"], x)[:, 0]
     return logits, caches, lengths + 1

@@ -1,9 +1,10 @@
-"""Linear-recurrence mixers: RWKV6 (Finch). Mamba is not ported yet.
+"""State-space / linear-recurrence mixers: Mamba (jamba) and RWKV6 (Finch).
 
-The recurrence runs as a Python loop over time with the state vectorised
-over (batch, heads) on the reference path (``use_kernel=False``, and every
-decode step); the prefill of the serving path hands it to the CUDA kernel
-``repro_torch.kernels.rwkv6_wkv`` through ``kernels.ops``.
+The recurrences run as a Python loop over time with the state vectorised
+over (batch, channels) on the reference path (``use_kernel=False``, and every
+decode step); the prefill of the serving path hands them to the CUDA kernels
+``repro_torch.kernels.ssm_scan`` (K3) and ``rwkv6_wkv`` (K4) through
+``kernels.ops``.
 
 Decode is a single recurrence step against a carried state, O(1) in the
 sequence length.
@@ -19,16 +20,117 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamSpec, ParamTree, layer_norm,
                                        resolve_device)
 
-MAMBA_NOT_PORTED = ("Mamba layers are not ported yet "
-                    "(ROADMAP.md Queue 1 item 8, kernel K3)")
+
+# ======================================================================
+# Mamba (selective scan, mamba1-style as used by Jamba)
+class MambaState(NamedTuple):
+    h: torch.Tensor         # (B, d_in, N) SSM state, fp32
+    conv: torch.Tensor      # (B, d_conv-1, d_in) rolling conv window
 
 
-def _mamba_not_ported(*args, **kwargs):
-    raise NotImplementedError(MAMBA_NOT_PORTED)
+def _dt_rank(cfg: ModelConfig) -> int:
+    return max(1, cfg.d_model // 16)
 
 
-MambaState = mamba_param_specs = mamba_apply_dense = _mamba_not_ported
-mamba_apply_decode = init_mamba_state = _mamba_not_ported
+def mamba_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    r = _dt_rank(cfg)
+    return {
+        "w_in": ParamSpec((d, 2 * d_in), ("d_model", "d_ff")),
+        "w_conv": ParamSpec((s.d_conv, d_in), (None, "d_ff")),
+        "b_conv": ParamSpec((d_in,), ("d_ff",), init="zeros"),
+        "w_x": ParamSpec((d_in, r + 2 * s.d_state), ("d_ff", None)),
+        "w_dt": ParamSpec((r, d_in), (None, "d_ff")),
+        "b_dt": ParamSpec((d_in,), ("d_ff",), init="zeros"),
+        "a_log": ParamSpec((d_in, s.d_state), ("d_ff", None), init="ones"),
+        "d_skip": ParamSpec((d_in,), ("d_ff",), init="ones"),
+        "w_out": ParamSpec((d_in, d), ("d_ff", "d_model")),
+    }
+
+
+def _mamba_inner(cfg: ModelConfig, p: ParamTree, xz: torch.Tensor,
+                 conv_state: torch.Tensor):
+    """Shared projections for a window of tokens.
+    xz: (B, S, 2*d_in); conv_state: (B, d_conv-1, d_in).
+    Returns (u, dt, Bm, Cm, z, new_conv_state)."""
+    s = cfg.ssm
+    r = _dt_rank(cfg)
+    x_part, z = xz.chunk(2, dim=-1)
+    seq = x_part.shape[1]
+
+    # depthwise causal conv over time, seeded with the carried window
+    xc = torch.cat([conv_state, x_part], dim=1)                 # (B, S+c-1, d_in)
+    w = p["w_conv"].to(xz.dtype)                                # (c, d_in)
+    u = xc[:, 0:seq] * w[0]
+    for i in range(1, s.d_conv):
+        u = u + xc[:, i:i + seq] * w[i]
+    u = F.silu(u + p["b_conv"].to(xz.dtype))
+    new_conv = xc[:, -(s.d_conv - 1):] if s.d_conv > 1 else conv_state
+
+    proj = u @ p["w_x"].to(xz.dtype)                            # (B,S,r+2N)
+    dt = F.softplus(proj[..., :r] @ p["w_dt"].to(xz.dtype)
+                    + p["b_dt"].to(xz.dtype))                   # (B,S,d_in)
+    bm = proj[..., r:r + s.d_state].float()                     # (B,S,N)
+    cm = proj[..., r + s.d_state:].float()                      # (B,S,N)
+    return u, dt, bm, cm, z, new_conv
+
+
+def mamba_apply_dense(cfg: ModelConfig, p: ParamTree, x: torch.Tensor,
+                      state: MambaState | None = None, use_kernel: bool = False
+                      ) -> Tuple[torch.Tensor, MambaState]:
+    """Full-sequence selective scan. x: (B, S, d).
+
+    ``use_kernel`` routes the recurrence through the K3 kernel when the state
+    is fresh and there is more than one token (the engine always prefills
+    from scratch); the kernel adds the skip term in fp32 before its cast,
+    the loop path adds it in ``x.dtype`` after the cast, as in the JAX
+    package."""
+    b, seq, _ = x.shape
+    fresh = state is None
+    if state is None:
+        state = init_mamba_state(cfg, b, dtype=x.dtype, device=x.device)
+    xz = x @ p["w_in"].to(x.dtype)
+    u, dt, bm, cm, z, new_conv = _mamba_inner(cfg, p, xz, state.conv)
+
+    a = -torch.exp(p["a_log"].float())                          # (d_in, N)
+
+    if use_kernel and fresh and seq > 1:
+        from repro_torch.kernels import ops as kops
+        y, h_final = kops.ssm_scan(u, dt, bm, cm, a, p["d_skip"].float())
+        y = y.to(x.dtype)
+    else:
+        h = state.h.float()
+        dtf = dt.float()
+        ys = []
+        for t in range(seq):
+            da = torch.exp(dtf[:, t, :, None] * a)              # (B,d_in,N)
+            h = da * h + (dtf[:, t] * u[:, t].float())[..., None] * bm[:, t, None, :]
+            ys.append(torch.einsum("bdn,bn->bd", h, cm[:, t]))
+        h_final = h
+        y = torch.stack(ys, dim=1).to(x.dtype)                  # (B,S,d_in)
+        y = y + u * p["d_skip"].to(x.dtype)
+    y = y * F.silu(z)
+    out = y @ p["w_out"].to(x.dtype)
+    return out, MambaState(h=h_final, conv=new_conv)
+
+
+def mamba_apply_decode(cfg: ModelConfig, p: ParamTree, x: torch.Tensor,
+                       state: MambaState) -> Tuple[torch.Tensor, MambaState]:
+    """Single-token step. x: (B, 1, d)."""
+    return mamba_apply_dense(cfg, p, x, state)
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device=None) -> MambaState:
+    """Zeroed state on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return MambaState(
+        h=torch.zeros((batch, d_in, s.d_state), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, s.d_conv - 1, d_in), dtype=dtype, device=device))
 
 
 # ======================================================================

@@ -10,8 +10,8 @@ of identical *units* (super-blocks) whose parameters carry a leading
   * deepseek: group "dense" (3 units) + group "moe" (58 units)
 
 Here a Python loop walks the units (PyTorch runs eagerly; there is no trace
-to keep small). The port runs the ``gqa`` mixer with a dense MLP and the
-``rwkv`` mixer with its channel mix; the other mixers and MoE raise
+to keep small). The port runs the ``gqa``, ``mamba`` and ``rwkv`` mixers
+with dense or MoE MLPs; MLA (and the MTP head) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamSpec, embed_param_specs,
                                        init_from_specs, mlp_apply,
@@ -32,8 +33,6 @@ from repro_torch.models.layers import (ParamSpec, embed_param_specs,
 
 _NOT_PORTED = {
     "mla": "MLA attention is not ported yet (ROADMAP.md Queue 1 item 7)",
-    "moe": "MoE layers are not ported yet (ROADMAP.md Queue 1 item 7)",
-    "mamba": ssm.MAMBA_NOT_PORTED,
 }
 
 
@@ -89,10 +88,8 @@ def layer_plan(cfg: ModelConfig) -> List[Group]:
 
 
 def _check_ported(sl: SubLayer):
-    if sl.mixer not in ("gqa", "rwkv"):
+    if sl.mixer not in ("gqa", "mamba", "rwkv"):
         raise NotImplementedError(_NOT_PORTED[sl.mixer])
-    if sl.mlp == "moe":
-        raise NotImplementedError(_NOT_PORTED["moe"])
 
 
 # ----------------------------------------------------------------------
@@ -111,12 +108,18 @@ def sublayer_param_specs(cfg: ModelConfig, sl: SubLayer) -> Dict[str, Any]:
         specs["rwkv"] = ssm.rwkv_param_specs(cfg)
         specs["norm_mlp"] = _norm_spec(cfg)   # channel-mix norm
         return specs
-    specs["attn"] = attn.attn_param_specs(cfg)
+    if sl.mixer == "mamba":
+        specs["mamba"] = ssm.mamba_param_specs(cfg)
+    else:
+        specs["attn"] = attn.attn_param_specs(cfg)
     if sl.mlp == "dense":
         specs["norm_mlp"] = _norm_spec(cfg)
         specs["mlp"] = mlp_param_specs(cfg, sl.d_ff)
         if cfg.post_norms:
             specs["norm_mlp_post"] = _norm_spec(cfg)
+    elif sl.mlp == "moe":
+        specs["norm_mlp"] = _norm_spec(cfg)
+        specs["moe"] = moe_mod.moe_param_specs(cfg)
     return specs
 
 
@@ -168,10 +171,13 @@ def _norm(cfg, scale, x):
 def sublayer_apply(cfg: ModelConfig, sl: SubLayer, p, x, positions,
                    cache, lengths, *, mode: str, use_kernels: bool):
     """mode: 'dense' (no cache out), 'prefill', 'decode'.
-    Returns (x, new_cache). In decode mode a KV ``cache`` is updated in place;
-    an RWKV state comes back as new tensors (``group_apply`` copies them into
-    the stacked buffers)."""
+    Returns (x, new_cache, aux_router_logits | None); the router logits of
+    an MoE sublayer come back in mode 'dense' only, for the aux loss. In
+    decode mode a KV ``cache`` is updated in place; a Mamba or RWKV state
+    comes back as new tensors (``group_apply`` copies them into the stacked
+    buffers)."""
     _check_ported(sl)
+    aux = None
     h = _norm(cfg, p["norm_mixer"], x)
     if sl.mixer == "rwkv":
         state = cache if mode == "decode" else ssm.init_rwkv_state(
@@ -184,8 +190,13 @@ def sublayer_apply(cfg: ModelConfig, sl: SubLayer, p, x, positions,
         cm_out, new_shift_c = ssm.rwkv_channel_mix(cfg, p["rwkv"], h2, state)
         x = x + cm_out
         return x, ssm.RWKVState(wkv=new_wkv, shift_t=new_shift,
-                                shift_c=new_shift_c)
-    if mode == "decode":
+                                shift_c=new_shift_c), aux
+    if sl.mixer == "mamba":
+        state = cache if mode == "decode" else None
+        out, new_cache = ssm.mamba_apply_dense(
+            cfg, p["mamba"], h, state,
+            use_kernel=use_kernels and mode != "decode")
+    elif mode == "decode":
         out, new_cache = attn.gqa_attention_decode(
             cfg, p["attn"], h, cache, lengths, is_global=sl.is_global,
             use_kernel=use_kernels)
@@ -203,7 +214,12 @@ def sublayer_apply(cfg: ModelConfig, sl: SubLayer, p, x, positions,
         if cfg.post_norms:
             out = _norm(cfg, p["norm_mlp_post"], out)
         x = x + out
-    return x, new_cache
+    elif sl.mlp == "moe":
+        h = _norm(cfg, p["norm_mlp"], x)
+        if mode == "dense":  # router logits for the aux loss
+            aux = h.reshape(-1, cfg.d_model) @ p["moe"]["w_router"].to(h.dtype)
+        x = x + moe_mod.moe_apply(cfg, p["moe"], h)
+    return x, new_cache, aux
 
 
 def init_sublayer_cache(cfg: ModelConfig, sl: SubLayer, batch: int,
@@ -211,6 +227,8 @@ def init_sublayer_cache(cfg: ModelConfig, sl: SubLayer, batch: int,
     _check_ported(sl)
     if sl.mixer == "rwkv":
         return ssm.init_rwkv_state(cfg, batch, dtype, device=device)
+    if sl.mixer == "mamba":
+        return ssm.init_mamba_state(cfg, batch, dtype, device=device)
     return attn.init_kv_cache(cfg, batch, max_len, is_global=sl.is_global,
                               dtype=dtype, device=device)
 
@@ -266,15 +284,17 @@ def split_units(params_stacked, grads_stacked):
 def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
                 caches_stacked, lengths, *, mode: str, use_kernels: bool,
                 remat: bool = False, remat_policy: str = "nothing"):
-    """Returns (x, caches_stacked | None).
+    """Returns (x, caches_stacked | None, aux_sum).
 
     decode: each unit's cache is a view ``stacked[u]``; the attention writes
-    its K/V row in place, and a new RWKV state is copied into the view, so
-    the stacked caches that come back are the ones that went in. prefill: the
-    per-unit caches are stacked, K/V to ``(L, B, S, KV, D)``, RWKV states to
-    ``(L, B, ...)``. dense (training): ``remat`` recomputes each unit in the
-    backward (policy "nothing", as in the JAX package); ``params_stacked``
-    may come from :func:`split_units`."""
+    its K/V row in place, and a new Mamba or RWKV state is copied into the
+    view, so the stacked caches that come back are the ones that went in.
+    prefill: the per-unit caches are stacked, K/V to ``(L, B, S, KV, D)``,
+    Mamba and RWKV states to ``(L, B, ...)``. dense (training): ``aux_sum``
+    adds up the MoE load-balance terms of the group's sublayers (0 without
+    MoE); ``remat`` recomputes each unit in the backward (policy "nothing",
+    as in the JAX package); ``params_stacked`` may come from
+    :func:`split_units`."""
     if remat and mode != "dense":
         raise ValueError(f"remat recomputes dense (training) units only, not mode={mode!r}")
     if remat and remat_policy == "save_attn":
@@ -282,26 +302,35 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
             'remat_policy="save_attn" is not ported yet (ROADMAP.md Queue 1 '
             'item 9); use "nothing"')
     collected = {f"sub{i}": [] for i in range(len(group.pattern))}
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def add_aux(total, aux):
+        return total if aux is None else total + moe_mod.aux_load_balance_loss(cfg, aux)
+
     for u in range(group.n_units):
         p_unit = _unit_params(params_stacked, u)
         if remat:
             def unit(h, p_unit=p_unit):
+                total = torch.zeros((), dtype=torch.float32, device=h.device)
                 for i, sl in enumerate(group.pattern):
-                    h, _ = sublayer_apply(cfg, sl, p_unit[f"sub{i}"], h, positions,
-                                          None, lengths, mode=mode,
-                                          use_kernels=use_kernels)
-                return h
+                    h, _, aux = sublayer_apply(cfg, sl, p_unit[f"sub{i}"], h,
+                                               positions, None, lengths, mode=mode,
+                                               use_kernels=use_kernels)
+                    total = add_aux(total, aux)
+                return h, total
             # non-reentrant: the backward reruns the whole unit from x
-            x = torch.utils.checkpoint.checkpoint(unit, x, use_reentrant=False)
+            x, unit_aux = torch.utils.checkpoint.checkpoint(unit, x, use_reentrant=False)
+            aux_sum = aux_sum + unit_aux
             continue
         for i, sl in enumerate(group.pattern):
             c_in = None
             if mode == "decode":
                 c = caches_stacked[f"sub{i}"]
                 c_in = type(c)(*(t[u] for t in c))
-            x, c_out = sublayer_apply(
+            x, c_out, aux = sublayer_apply(
                 cfg, sl, p_unit[f"sub{i}"], x, positions, c_in, lengths,
                 mode=mode, use_kernels=use_kernels)
+            aux_sum = add_aux(aux_sum, aux)
             if mode == "decode":
                 for dst, src in zip(c_in, c_out):
                     if src is not dst:
@@ -309,8 +338,8 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
             elif mode == "prefill":
                 collected[f"sub{i}"].append(c_out)
     if mode == "decode":
-        return x, caches_stacked
+        return x, caches_stacked, aux_sum
     if mode == "prefill":
         return x, {name: type(cs[0])(*(torch.stack(f) for f in zip(*cs)))
-                   for name, cs in collected.items()}
-    return x, None
+                   for name, cs in collected.items()}, aux_sum
+    return x, None, aux_sum

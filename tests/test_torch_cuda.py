@@ -8,6 +8,7 @@ import torch
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import rwkv6_wkv as wkv_k
+from repro_torch.kernels import ssm_scan as ssm_k
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +137,49 @@ def test_ops_flash_backward_launches_k5(device):
     grads = fab_k.flash_attention_bwd(qt, kt, vt, out, lse, (out * out).sum(-1))
     assert fab_k.copied_bytes == copied
     assert all(g_.transpose(1, 2).is_contiguous() for g_ in grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d_in,n", [(2, 512, 1024, 16), (2, 32, 128, 8),
+                                        (2, 200, 256, 16), (3, 37, 1000, 5),
+                                        (4, 2, 384, 16), (1, 1, 64, 3)])
+def test_ssm_scan_kernel_vs_plain(device, dtype, b, s, d_in, n):
+    gen = torch.Generator(device=device).manual_seed(5)
+    u = torch.randn((b, s, d_in), generator=gen, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, d_in), generator=gen, device=device) * 0.5).to(dtype)
+    bm, cm = (torch.randn((b, s, n), generator=gen, device=device) for _ in range(2))
+    a = -torch.exp(torch.randn((d_in, n), generator=gen, device=device) * 0.3)
+    d_skip = torch.ones(d_in, device=device)
+    before = ssm_k.launches
+    y, h = ssm_k.ssm_scan(u, dt, bm, cm, a, d_skip)
+    assert ssm_k.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    want_y, want_h = ssm_k.ssm_scan_plain(u, dt, bm, cm, a, d_skip)
+    tol = 4 * TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, want_h, atol=tol, rtol=tol)
+
+
+def test_jamba_smoke_kernels_on_vs_off(device):
+    """The jamba smoke model in fp32 on the card: prefill logits with the
+    kernels (K1 and K3) against the einsum and loop path, and one decode
+    step (K2) after it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = get_smoke_config("jamba-1.5-large-398b").scaled(dtype="float32")
+    params = init_params(cfg, 0, device=device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator(device=device).manual_seed(6),
+                         device=device)
+    out = {}
+    for on in (True, False):
+        eng = Engine(cfg, params, EngineConfig(max_len=32, use_kernels=on), device=device)
+        s0 = ssm_k.launches
+        logits, caches, lengths = eng.prefill(toks)
+        step, _, _ = eng.decode(caches, lengths, logits.argmax(-1))
+        out[on] = (logits, step, ssm_k.launches - s0)
+    assert out[True][2] == 7 and out[False][2] == 0
+    for a_, b_ in zip(out[True][:2], out[False][:2]):
+        torch.testing.assert_close(a_, b_, atol=5e-4, rtol=5e-4)

@@ -283,3 +283,71 @@ def test_engine_pool_is_lazy_and_seeded():
                        other.params["embed"]["embedding"])
     toks = serve.make_prompts(256, 3, 5, seed=1, device="cpu")
     assert toks.shape == (3, 5) and toks.dtype == torch.long
+
+
+def test_engine_pool_bound_evicts_least_recently_used():
+    """With ``max_engines=2`` a third level drops the least recently used
+    engine; a dropped level is rebuilt from its seed, bit for bit."""
+    pool = serve.EnginePool(configs.get_smoke_config("jamba-1.5-large-398b"),
+                            device="cpu", dtype="float32", max_len=32, seed=7,
+                            max_engines=2)
+    e0 = pool.engine_for(0)
+    first = {k: v.clone() for k, v in e0.params["layers"]["sub0"]["mamba"].items()}
+    pool.engine_for(3)
+    assert pool.engine_for(0) is e0            # a hit refreshes level 0
+    pool.engine_for(5)                         # evicts level 3, not level 0
+    assert list(pool.engines) == [0, 5] and pool.builds == 3
+    pool.engine_for(1)                         # evicts level 0
+    assert list(pool.engines) == [5, 1]
+    del e0
+    again = pool.engine_for(0)
+    assert list(pool.engines) == [1, 0] and pool.builds == 5
+    for k, v in again.params["layers"]["sub0"]["mamba"].items():
+        assert torch.equal(v, first[k]), k
+    assert serve.EnginePool(configs.get_smoke_config(ARCH), device="cpu").max_engines is None
+    with pytest.raises(ValueError, match="max_engines"):
+        serve.EnginePool(configs.get_smoke_config(ARCH), device="cpu", max_engines=0)
+
+
+def test_serve_main_smoke_cpu_jamba(capsys):
+    report = serve.main(["--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu",
+                         "--dtype", "float32", "--requests", "3", "--disconnect",
+                         "--prompt-len", "12", "--decode-steps", "3",
+                         "--max-len", "24", "--batch", "2"])
+    assert "arch=jamba-1.5-large-398b" in capsys.readouterr().out
+    assert report["runs"] and report["disconnected"] == ["slice-b"]
+    smoke = configs.get_smoke_config("jamba-1.5-large-398b")
+    for r in report["runs"]:
+        assert r["tokens"].shape == (2, 3) and r["finite"]
+        assert 0 <= r["tokens"].min() and r["tokens"].max() < smoke.vocab_size
+    levels = {r["level"] for r in report["runs"]}
+    assert set(report["engines"]) == levels and report["engine_builds"] == len(levels)
+    for eng in report["engines"].values():
+        assert eng.cfg.ssm.kind == "mamba"
+        assert eng.cfg.moe.num_experts == smoke.moe.num_experts
+
+
+def test_serve_trace_plans_the_config_it_is_given():
+    """``cfg=`` replaces the arch's own config: the gateway's table and
+    variant ladder, and the engines, are built from it."""
+    full = configs.get_config("jamba-1.5-large-398b")
+    cut = full.scaled(num_layers=8, moe=dataclasses.replace(full.moe, num_experts=8))
+    small = cut.scaled(d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+                       vocab_size=256, moe=dataclasses.replace(
+                           cut.moe, d_ff_expert=128),
+                       ssm=dataclasses.replace(cut.ssm, d_state=8), dtype="float32")
+    report = serve.serve_trace(cfg=small, requests=2, device="cpu", dtype="float32",
+                               batch=2, prompt_len=8, decode_steps=2, max_len=16,
+                               max_engines=1, verbose=False)
+    gn = report["gateway"]
+    assert len(report["engines"]) == 1              # bounded: one level resident
+    levels = [r["level"] for r in report["runs"]]
+    assert report["engine_builds"] == 1 + sum(a != b for a, b in zip(levels, levels[1:]))
+    assert gn.table.pool.base is small
+    assert gn.table.pool[0].config.moe.num_experts == 8
+    want = VariantPool(small)
+    np.testing.assert_allclose(gn.table.perf[0], serve.build_gateway(small).table.perf[0])
+    ((lvl, eng),) = report["engines"].items()
+    assert eng.cfg == want[lvl].config
+    other = serve.build_gateway(full)
+    assert not np.allclose(other.table.perf[0], gn.table.perf[0])

@@ -54,7 +54,8 @@ def test_modules_found():
                      "repro_torch.kernels.flash_attention_bwd",
                      "repro_torch.train.optimizer", "repro_torch.train.train_step",
                      "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
-                     "repro_torch.launch.train"):
+                     "repro_torch.launch.train", "repro_torch.kernels.ssm_scan",
+                     "repro_torch.models.moe"):
         assert expected in MODULES
 
 
@@ -133,7 +134,7 @@ def test_kernel_build_needs_the_compiler():
     assert [p.name for p in _build.sources()] == ["decode_attention.cu",
                                                   "flash_attention.cu",
                                                   "flash_attention_bwd.cu",
-                                                  "rwkv6_wkv.cu"]
+                                                  "rwkv6_wkv.cu", "ssm_scan.cu"]
     assert _build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()

@@ -1,8 +1,8 @@
-"""Port kernels on the CPU: the plain PyTorch versions of the attention and
-WKV kernels and the ``ops`` dispatch layer, held against the JAX package's
-oracles (``repro.kernels.ref``) and its Pallas kernels in interpret mode, on
-the same numpy inputs. Tolerances are the reference's own: 5e-5 in fp32,
-2e-2 in bf16, four times both for the WKV recurrence."""
+"""Port kernels on the CPU: the plain PyTorch versions of the attention, WKV
+and selective-scan kernels and the ``ops`` dispatch layer, held against the
+JAX package's oracles (``repro.kernels.ref``) and its Pallas kernels in
+interpret mode, on the same numpy inputs. Tolerances are the reference's
+own: 5e-5 in fp32, 2e-2 in bf16, four times both for the two recurrences."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,10 +12,12 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.rwkv6_wkv import rwkv6_wkv as jax_wkv
+from repro.kernels.ssm_scan import ssm_scan as jax_ssm_scan
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rwkv6_wkv as wkv_k
+from repro_torch.kernels import ssm_scan as ssm_k
 
 from _torch_util import as_np, to_jax, to_torch
 
@@ -210,7 +212,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     odd = torch.zeros(2, 8, 4, 17)[..., 1:]
     assert fa_k._aligned_view(odd).is_contiguous()
     assert fa_k.launches == 0 and dec_k.launches == 0   # the CPU never launches
-    assert wkv_k.launches == 0
+    assert wkv_k.launches == 0 and ssm_k.launches == 0
 
 
 def _wkv_inputs(seed, bh, s, dk, dv):
@@ -285,3 +287,81 @@ def test_ops_rwkv6_wkv(bf16):
             ops.force_ref(False)
         _close4(got[0], want[0], bf16)
         _close4(got[1], want[1], bf16)
+
+
+def _ssm_inputs(seed, b, s, d, n):
+    """As ``tests/test_kernels.py`` draws them: dt = softplus(N(0,1)/2),
+    a = -exp(N(0,1) * 0.3)."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((b, s, d))
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, d)) * 0.5))
+    bm = rng.standard_normal((b, s, n))
+    cm = rng.standard_normal((b, s, n))
+    a = -np.exp(rng.standard_normal((d, n)) * 0.3)
+    d_skip = 1.0 + 0.1 * rng.standard_normal(d)
+    return tuple(x.astype(np.float32) for x in (u, dt, bm, cm, a, d_skip))
+
+
+def _ssm_args(ins, bf16, conv):
+    """u, dt, bm, cm in the working dtype (as the JAX kernel test has them);
+    a and d_skip in fp32."""
+    return [conv(x, bf16) for x in ins[:4]] + [conv(x, False) for x in ins[4:]]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,d,n,chunk,block_d", [(2, 128, 96, 8, 32, 32),
+                                                   (1, 64, 256, 16, 64, 128)])
+def test_ssm_scan_plain_vs_jax_oracle_and_pallas(b, s, d, n, chunk, block_d, bf16):
+    """The JAX kernel test's shapes (S a multiple of the chunk): the plain
+    version against the JAX oracle and the Pallas kernel in interpret mode,
+    and the port's oracle against the JAX one."""
+    ins = _ssm_inputs(11, b, s, d, n)
+    t_in, j_in = _ssm_args(ins, bf16, to_torch), _ssm_args(ins, bf16, to_jax)
+    y, h = ssm_k.ssm_scan(*t_in)
+    assert y.shape == (b, s, d) and y.dtype == t_in[0].dtype
+    assert h.shape == (b, d, n) and h.dtype == torch.float32
+    y_ref, h_ref = jref.ssm_scan_ref(*j_in)
+    _close4(y, y_ref, bf16)
+    _close4(h, h_ref, bf16)
+    p_y, p_h = jax_ssm_scan(*j_in, interpret=True, chunk=chunk, block_d=block_d)
+    _close4(y, p_y, bf16)
+    _close4(h, p_h, bf16)
+    o_y, o_h = ref.ssm_scan_ref(*t_in)
+    assert o_y.dtype == t_in[0].dtype and o_h.dtype == torch.float32
+    _close4(o_y, y_ref, bf16)
+    _close4(o_h, h_ref, bf16)
+
+
+@pytest.mark.parametrize("b,s,d,n", [(2, 200, 32, 8), (3, 1, 40, 16), (1, 37, 50, 5)],
+                         ids=["ragged-s200", "s1", "s37-d50-n5"])
+def test_ssm_scan_ragged_against_oracle(b, s, d, n):
+    """S not a multiple of any chunk, S = 1, d_in and N off every tile. Held
+    against the JAX oracle only: the Pallas kernel lets rows past S into its
+    last chunk's state when S > chunk and S % chunk != 0 (at S = 200, chunk
+    128 its h_final is NaN), which the port must not copy."""
+    ins = _ssm_inputs(12, b, s, d, n)
+    y, h = ssm_k.ssm_scan(*(to_torch(x) for x in ins))
+    assert torch.isfinite(h).all() and torch.isfinite(y).all()
+    y_ref, h_ref = jref.ssm_scan_ref(*(to_jax(x) for x in ins))
+    _close4(y, y_ref, False)
+    _close4(h, h_ref, False)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_ops_ssm_scan(bf16):
+    """``ops.ssm_scan`` with and without ``force_ref`` matches the JAX
+    oracle, with the model's mixed types: u and dt in the working dtype,
+    B, C, a and d_skip in fp32."""
+    ins = _ssm_inputs(13, 2, 48, 64, 16)
+    want = jref.ssm_scan_ref(*(to_jax(x, bf16) for x in ins[:2]),
+                             *(to_jax(x) for x in ins[2:]))
+    t_in = [to_torch(x, bf16) for x in ins[:2]] + [to_torch(x) for x in ins[2:]]
+    for force in (False, True):
+        ops.force_ref(force)
+        try:
+            y, h = ops.ssm_scan(*t_in)
+        finally:
+            ops.force_ref(False)
+        assert y.dtype == t_in[0].dtype
+        _close4(y, want[0], bf16)
+        _close4(h, want[1], bf16)

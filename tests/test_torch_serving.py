@@ -1,7 +1,8 @@
 """Port serving engine on the CPU: prefill/decode consistency against the
 full forward pass, the ring-buffer slot invariant, and greedy ``generate``
 emitting the same tokens as the JAX engine on the same fp32 weights, with a
-sliding window (past the wrap of the ring) and without."""
+sliding window (past the wrap of the ring) and without, and for the
+recurrent (rwkv6), hybrid Mamba + MoE (jamba) and MoE (mixtral) models."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ from repro_torch.serving.engine import (BatchScheduler, Engine, EngineConfig,
 from _torch_util import as_np, numpy_params, tree_to_jax
 
 ARCHS = ["phi4-mini-3.8b", "qwen3-32b", "gemma2-2b", "llava-next-mistral-7b",
-         "musicgen-medium", "rwkv6-1.6b"]
+         "musicgen-medium", "rwkv6-1.6b", "jamba-1.5-large-398b", "mixtral-8x7b"]
 
 
 def _setup(arch, seed, b, s, **scaled):
@@ -124,6 +125,8 @@ GENERATE_CASES = [
     ("gemma2-2b", {"sliding_window": 8}, 13, 12),        # prompt past the window
     ("musicgen-medium", {}, 6, 6),                       # stub frontend, sinusoidal
     ("rwkv6-1.6b", {}, 12, 8),                           # recurrent state, no cache
+    ("jamba-1.5-large-398b", {}, 12, 8),                 # Mamba states + KV, MoE
+    ("mixtral-8x7b", {}, 10, 10),                        # MoE, window 16 wraps
 ]
 
 
@@ -169,6 +172,52 @@ def test_rwkv6_decode_writes_state_in_place(use_kernels):
     for t, old, b in zip(caches2["layers"]["sub0"], leaves, before):
         assert t is old
         assert not torch.equal(t, b)        # the step did write the state
+
+
+@pytest.mark.parametrize("use_kernels", [False, True], ids=["einsum", "kernels"])
+def test_jamba_decode_writes_mamba_state_in_place(use_kernels):
+    """A Mamba state is fixed-size: ``pad_caches`` passes it through, and a
+    decode step copies the new state into the very tensors it was given;
+    the attention layer's cache is padded to ``max_len``."""
+    from repro_torch.models.ssm import MambaState
+    cfg, toks, _ = _setup("jamba-1.5-large-398b", 29, 2, 9)
+    eng = Engine(cfg, init_params(cfg, 7, device="cpu"),
+                 EngineConfig(max_len=16, use_kernels=use_kernels), device="cpu")
+    logits, caches, lengths = eng.prefill(toks)
+    units, d_in = cfg.num_layers // 8, cfg.ssm.expand * cfg.d_model
+    st = caches["layers"]["sub0"]
+    assert isinstance(st, MambaState)
+    assert st.h.shape == (units, 2, d_in, cfg.ssm.d_state) and st.h.dtype == torch.float32
+    assert st.conv.shape == (units, 2, cfg.ssm.d_conv - 1, d_in)
+    assert caches["layers"]["sub3"].k.shape == (units, 2, 16, cfg.num_kv_heads,
+                                                cfg.head_dim)
+    before = [t.clone() for t in st]
+    leaves = list(st)
+    out, caches2, _ = eng.decode(caches, lengths, torch.argmax(logits, dim=-1))
+    assert caches2 is caches
+    for t, old, b in zip(caches2["layers"]["sub0"], leaves, before):
+        assert t is old
+        assert not torch.equal(t, b)        # the step did write the state
+
+
+def test_jamba_decode_from_an_empty_state():
+    """``init_cache`` gives jamba zero Mamba states and K/V buffers; one
+    decode step from them equals the forward pass on that token."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.ssm import MambaState
+    cfg, toks, _ = _setup("jamba-1.5-large-398b", 30, 2, 1)
+    params = init_params(cfg, 8, device="cpu")
+    caches = init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    assert isinstance(caches["layers"]["sub1"], MambaState)
+    assert all(float(t.abs().sum()) == 0.0 for t in caches["layers"]["sub1"])
+    t = torch.from_numpy(toks)
+    with torch.inference_mode():
+        logits, caches, lengths = decode_step(
+            cfg, params, caches, torch.zeros(2, dtype=torch.long), t[:, 0],
+            use_kernels=True)
+        full, _ = forward(cfg, params, t)
+    assert lengths.tolist() == [1, 1]
+    np.testing.assert_allclose(as_np(logits), as_np(full[:, 0]), atol=5e-4, rtol=5e-4)
 
 
 def test_generate_deterministic_and_sampled():

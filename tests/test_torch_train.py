@@ -152,6 +152,23 @@ def test_decode_and_wkv_raise_under_autograd():
         ops.rwkv6_wkv(r, r.detach(), r.detach(), torch.rand(2, 4, 8), torch.zeros(2, 8))
 
 
+@pytest.mark.parametrize("which", ["u", "dt", "bm"])
+def test_ssm_scan_raises_under_autograd(which):
+    """The JAX package defines no backward kernel for the selective scan:
+    ``ops.ssm_scan`` refuses an input that needs a gradient, and runs once
+    gradients are off."""
+    u, dt = torch.randn(2, 6, 16), torch.rand(2, 6, 16)
+    bm, cm = torch.randn(2, 6, 4), torch.randn(2, 6, 4)
+    ins = {"u": u, "dt": dt, "bm": bm}
+    ins[which] = ins[which].clone().requires_grad_(True)
+    args = (ins["u"], ins["dt"], ins["bm"], cm, -torch.rand(16, 4), torch.ones(16))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssm_scan(*args)
+    with torch.no_grad():
+        y, h = ops.ssm_scan(*args)
+    assert y.shape == (2, 6, 16) and h.shape == (2, 16, 4)
+
+
 # ----------------------------------------------------------------------
 # loss and gradients
 def _jax_batch(cfg, seed, b=2, s=24):
@@ -199,6 +216,31 @@ def test_loss_and_grads_match_jax(arch, use_kernels):
     assert got.keys() == want.keys()
     for key in want:
         _close(got[key], want[key], MODEL_TOL, scale_atol=True)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True], ids=["einsum", "kernels"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mixtral-8x7b"])
+def test_moe_loss_fn_matches_jax(arch, use_kernels):
+    """``loss_fn`` of the MoE archs, total, ``ce`` and the load-balance
+    ``aux`` term (weighted by ``aux_weight``), against the JAX ``loss_fn``
+    on the same converted weights; with kernels, the JAX side runs its
+    Pallas kernels in interpret mode."""
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    jcfg = jax_smoke_config(arch).scaled(dtype="float32")
+    tree = numpy_params(cfg, seed=27)
+    batch = _jax_batch(cfg, 28)
+    jl, jm = jax_loss_fn(jcfg, tree_to_jax(tree),
+                         {k: jnp.asarray(v) for k, v in batch.items()},
+                         use_kernels=use_kernels, aux_weight=0.05)
+    with torch.inference_mode():
+        loss, metrics = model_lib.loss_fn(cfg, params_from_jax(cfg, tree, device="cpu"),
+                                          to_device(batch, "cpu"),
+                                          use_kernels=use_kernels, aux_weight=0.05)
+    assert float(metrics["aux"]) > 0.0
+    _close(metrics["ce"], jm["ce"], MODEL_TOL)
+    _close(metrics["aux"], jm["aux"], MODEL_TOL)
+    _close(loss, jl, MODEL_TOL)
+    _close(loss, metrics["ce"] + 0.05 * metrics["aux"], 1e-6)
 
 
 def test_split_units_gradient_lands_in_the_stacked_buffer():
