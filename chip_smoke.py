@@ -20,7 +20,12 @@ Phases, each of which fails the run with a non-zero exit code:
    output averaged over hundreds of slots is of order 0.1); each kernel is
    timed (CUDA events, L2 flushed before every launch, median) beside its
    plain version, one library call where there is one, and its roofline
-   bound;
+   bound. Flash attention runs on three routes chosen by (dtype, head dim):
+   each case prints its route, and the serving-shape timing must run on the
+   ``wgmma`` + TMA kernel; flash and decode attention also report, for the
+   kernel and the library call alike, the time of a call as its caller sees
+   it (the device idle before it) and the device time of its kernels
+   (``torch.profiler``);
 3. main paths at full width through ``repro_torch.launch.serve``, one after
    the other, each a gateway start-up and a short request trace with a node
    disconnect in the middle, every share run through the engine of its
@@ -31,10 +36,12 @@ Phases, each of which fails the run with a non-zero exit code:
    (the selective scan in each of its 7 Mamba layers of every prefill, flash
    and decode attention in its attention layer; one engine resident at a
    time). Every launch count is set to 0 just before a trace and checked
-   just after; the prefill logits of one level are then held against the
-   same engine with the kernels off (jamba: its first Mamba layer in fp32
-   copies; the whole model's bf16 difference is printed). Each trace's
-   engines are freed before the next, so each peak memory is its own;
+   just after, and every flash-attention launch of a trace (and of the
+   train run) must have gone through the ``wgmma`` route; the prefill
+   logits of one level are then held against the same engine with the
+   kernels off (jamba: its first Mamba layer in fp32 copies; the whole
+   model's bf16 difference is printed). Each trace's engines are freed
+   before the next, so each peak memory is its own;
 4. train: phi4-mini-3.8b at full width and depth through
    ``repro_torch.launch.train.run_training`` (fp32 master weights, bf16
    compute, remat, batch 8 x 512, 3 AdamW steps), every step checked for a
@@ -171,6 +178,69 @@ class Timer:
         return statistics.median(times)
 
 
+def reset_counts():
+    """Every kernel's launch count, and K1's count by route, to 0."""
+    for mod in KERNELS.values():
+        mod.launches = 0
+    fa_k.launches_by_route = dict.fromkeys(fa_k.ROUTES, 0)
+
+
+K1_ROUTES = {}   # path -> K1's launches by route, read right after the path ran
+
+
+def assert_k1_wgmma(where, n):
+    """Every one of the ``n`` K1 launches counted since the last reset went
+    through the ``wgmma`` route."""
+    routes = dict(fa_k.launches_by_route)
+    assert routes["wgmma"] == n and sum(routes.values()) == n, (
+        f"{where}: K1 launches by route {routes}, expected all {n} on wgmma")
+    K1_ROUTES[where] = routes
+
+
+def call_ms(fn, warmup: int = 3, iters: int = 15) -> float:
+    """Median time of one call as its caller sees it: the device idle before
+    the call (synchronised), CUDA events around it, so the host's work in
+    the call (checks, allocations, launches) counts whenever the device
+    would otherwise wait for it."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 15, tries: int = 3):
+    """Device time of one call: the kernels' own time under
+    ``torch.profiler``, summed over every kernel the call launches, with L2
+    flushed before each call (by a ``bitwise_not_`` over 256 MB, whose
+    kernel is left out). Returns (ms a call, kernels a call). A profile that
+    recorded no kernel at all (CUPTI drops a session now and then) is taken
+    again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in _profile_rows(prof) if "bitwise_not" not in r[2]]
+        if rows:
+            return sum(r[0] for r in rows) / 1e3 / iters, sum(r[1] for r in rows) / iters
+    raise AssertionError(f"the profiler saw no kernel of the timed call in {tries} tries")
+
+
 def _rand(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).to(dtype)
 
@@ -207,7 +277,9 @@ def _visible_pairs(sq, s, causal, window, q_offset):
 
 def flash_cases():
     bf, f32 = torch.bfloat16, torch.float32
-    # name, dtype, b, h, kv, sq, s, d, window, softcap, q_offset, causal
+    # name, dtype, b, h, kv, sq, s, d, window, softcap, q_offset, causal; the
+    # names ending in "contiguous" hand over (B, H, S, D) tensors, the others
+    # the transposed views of (B, S, H, D) tensors that ops hands over
     return [
         ("main bf16", bf, B, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
         ("main fp32 b2", f32, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
@@ -224,36 +296,69 @@ def flash_cases():
         ("q_offset 128 fp32", f32, 2, 4, 4, 128, 256, 64, None, 0.0, 128, True),
         ("q_offset 100 window 70 bf16", bf, 2, 4, 2, 90, 190, 128, 70, 0.0, 100, True),
         ("non-causal ragged fp32", f32, 1, 4, 4, 100, 77, 64, None, 0.0, 0, False),
+        # the wgmma route (bf16, D 64 and 128): ragged, window with q_offset,
+        # soft cap, G 1 / 3 / 8, non-causal, contiguous tensors
+        ("wgmma sq77 d128 g3", bf, 2, 6, 2, 77, 77, 128, None, 0.0, 0, True),
+        ("wgmma sq200 d64 g1", bf, 2, 4, 4, 200, 200, 64, None, 0.0, 0, True),
+        ("wgmma sq192 d128 g8", bf, 1, 16, 2, 192, 192, 128, None, 0.0, 0, True),
+        ("wgmma window64 q_offset100 d64", bf, 2, 6, 2, 90, 190, 64, 64, 0.0, 100, True),
+        ("wgmma window70 q_offset100 d128", bf, 2, 6, 2, 90, 190, 128, 70, 0.0, 100, True),
+        ("wgmma window64 s300 d128 g1", bf, 1, 4, 4, 300, 300, 128, 64, 0.0, 0, True),
+        ("wgmma softcap30 d128 g3", bf, 2, 6, 2, 256, 256, 128, None, 30.0, 0, True),
+        ("wgmma softcap30 ragged d64 g8", bf, 1, 8, 1, 200, 200, 64, None, 30.0, 0, True),
+        ("wgmma non-causal ragged d128", bf, 1, 6, 2, 100, 77, 128, None, 0.0, 0, False),
+        ("wgmma non-causal sq300 s200 d64", bf, 1, 4, 2, 300, 200, 64, None, 0.0, 0, False),
+        ("wgmma q_offset 128 d128 g1", bf, 2, 4, 4, 128, 256, 128, None, 0.0, 128, True),
+        ("wgmma s1 d128 g3 contiguous", bf, 2, 6, 2, 1, 1, 128, None, 0.0, 0, True),
+        ("wgmma main d128 contiguous", bf, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
+        ("wgmma ragged d64 g8 contiguous", bf, 2, 8, 1, 200, 200, 64, 64, 0.0, 0, True),
     ]
+
+
+def _flash_inputs(gen, b, h, kv, sq, s, d, dt, device, contiguous=False):
+    """q, k, v as the kernel takes them: transposed views of the model's
+    (B, S, H, D) tensors, or contiguous (B, H, S, D) tensors."""
+    if contiguous:
+        return tuple(_rand(gen, (b, n, t, d), dt, device)
+                     for n, t in ((h, sq), (kv, s), (kv, s)))
+    return tuple(_rand(gen, (b, t, n, d), dt, device).transpose(1, 2)
+                 for n, t in ((h, sq), (kv, s), (kv, s)))
 
 
 def check_flash(device, timer):
     gen = torch.Generator(device=device).manual_seed(1)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for (name, dt, b, h, kv, sq, s, d, window, cap, off, causal) in flash_cases():
-        # model layout (B,S,H,D), handed over as transposed views like ops does
-        q = _rand(gen, (b, sq, h, d), dt, device).transpose(1, 2)
-        k = _rand(gen, (b, s, kv, d), dt, device).transpose(1, 2)
-        v = _rand(gen, (b, s, kv, d), dt, device).transpose(1, 2)
+        q, k, v = _flash_inputs(gen, b, h, kv, sq, s, d, dt, device,
+                                contiguous=name.endswith("contiguous"))
         kw = dict(causal=causal, window=window, softcap=cap, q_offset=off,
                   return_lse=True)
+        rt = fa_k.route(dt, d)
+        before = fa_k.launches_by_route[rt]
         out, lse = fa_k.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        assert fa_k.launches_by_route[rt] == before + 1, (name, rt)
+        assert name.startswith("wgmma") <= (rt == "wgmma"), (name, rt)
         ref_out, ref_lse = fa_k.flash_attention_plain(q, k, v, **kw)
         assert out.shape == q.shape and out.dtype == dt and lse.shape == (b, h, sq)
         e1 = _check(f"flash[{name}] out", out, ref_out, TOL[dt])
         e2 = _check(f"flash[{name}] lse", lse, ref_lse, TOL[dt])
         worst[dt] = max(worst[dt], e1)
-        print(f"  flash {name:32s} out err {e1:.3e}  lse err {e2:.3e}")
+        print(f"  flash {name:32s} route {rt:5s} out err {e1:.3e}  lse err {e2:.3e}")
 
     # timing at the serving shape
     dt = torch.bfloat16
     q = _rand(gen, (B, PROMPT, H, D), dt, device).transpose(1, 2)
     k = _rand(gen, (B, PROMPT, KV, D), dt, device).transpose(1, 2)
     v = _rand(gen, (B, PROMPT, KV, D), dt, device).transpose(1, 2)
+    assert fa_k.route(dt, D) == "wgmma"
     out = fa_k.flash_attention(q, k, v)
     err = _check("flash[timed] out", out, fa_k.flash_attention_plain(q, k, v), TOL[dt])
+    reset_counts()
     ms = timer(lambda: fa_k.flash_attention(q, k, v))
+    assert_k1_wgmma("flash[timed]", fa_k.launches)
+    k_call_ms = call_ms(lambda: fa_k.flash_attention(q, k, v))
+    k_device_ms, k_kernels = device_ms(lambda: fa_k.flash_attention(q, k, v))
     plain_ms = timer(lambda: fa_k.flash_attention_plain(q, k, v))
     # the fp32 path (FMAs on the CUDA cores) at the same shape, for the record
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -268,17 +373,21 @@ def check_flash(device, timer):
         lib = lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)  # noqa: E731
     _check("flash[timed] vs library", out, lib(), TOL[dt])
     library_ms = timer(lib)
+    lib_device_ms, lib_kernels = device_ms(lib)
     es = q.element_size()
     nbytes = (2 * B * H * PROMPT * D + 2 * B * KV * PROMPT * D) * es
     flops = 4 * D * B * H * _visible_pairs(PROMPT, PROMPT, True, None, 0)
     t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:88",
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
-        "library_ms": library_ms, "fp32_path_ms": fp32_ms,
+        "library_ms": library_ms, "kernel_route": "wgmma", "call_ms": k_call_ms,
+        "device_ms": k_device_ms, "device_kernels_per_call": k_kernels,
+        "library_device_ms": lib_device_ms, "library_kernels_per_call": lib_kernels,
+        "fp32_path_ms": fp32_ms,
         "shape": f"q({B},{H},{PROMPT},{D}) kv({B},{KV},{PROMPT},{D}) bf16 causal",
         "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
         "max_abs_err_all_bf16": worst[torch.bfloat16],
@@ -306,6 +415,22 @@ def decode_cases():
         ("d256 g5 fp32", f32, 1, 4, 5, 130, 256, 0.0, [130], None),
         ("random mask g4 d64 bf16", bf, 4, 2, 4, 777, 64, 0.0, None, None),
         ("random mask g6 softcap fp32", f32, 2, 3, 6, 257, 128, 30.0, None, None),
+        # a row with no valid slot: the mean of V, m = -1e30, l = S
+        ("all-masked row g3 bf16", bf, 3, 8, 3, 1024, 128, 0.0, [0, 520, 1], None),
+        ("all-masked row g8 softcap fp32", f32, 2, 2, 8, 300, 64, 30.0, [0, 7], None),
+        ("all-masked rows d16 s32 bf16", bf, 2, 2, 2, 32, 16, 0.0, [0, 0], None),
+        ("all-masked row d256 splits 3", f32, 2, 2, 2, 257, 256, 0.0, [0, 257], 3),
+        # one valid slot; fewer valid slots than blocks in the cluster
+        ("one slot g7 bf16", bf, 8, 2, 7, 1024, 128, 0.0, [1] * 8, None),
+        ("3 slots, 8 splits fp32", f32, 2, 4, 4, 512, 64, 0.0, [3, 5], 8),
+        ("5 slots, 8 splits bf16", bf, 2, 4, 2, 1024, 128, 0.0, [5, 1], 8),
+        ("g1 bf16", bf, 4, 8, 1, 1024, 128, 0.0, [520, 1, 1024, 64], None),
+        ("g2 fp32", f32, 4, 8, 2, 1024, 128, 0.0, [520, 3, 1024, 64], None),
+        ("g4 bf16", bf, 4, 8, 4, 1024, 128, 0.0, [520, 3, 1024, 64], None),
+        ("g5 splits 5 bf16", bf, 2, 8, 5, 700, 128, 0.0, [699, 300], 5),
+        ("g6 splits 2 fp32", f32, 2, 4, 6, 700, 64, 0.0, [699, 300], 2),
+        ("g7 bf16", bf, 2, 8, 7, 1024, 128, 0.0, [520, 1000], None),
+        ("random mask g8 splits 8 bf16", bf, 3, 2, 8, 600, 128, 0.0, None, 8),
     ]
 
 
@@ -326,9 +451,11 @@ def check_decode(device, timer):
             mask[:, s // 2] = True          # at least one valid slot a row
         else:
             mask = _prefix_mask(lengths, s, device)
+        before = dec_k.launches
         out, m, l = dec_k.decode_attention(q, k, v, mask, softcap=cap,
                                            return_stats=True, splits=splits)
         torch.cuda.synchronize()
+        assert dec_k.launches == before + 1
         r_out, r_m, r_l = dec_k.decode_attention_plain(q, k, v, mask, softcap=cap,
                                                        return_stats=True)
         assert out.shape == q.shape and out.dtype == dt and m.shape == (b, kv, g, 1)
@@ -337,6 +464,12 @@ def check_decode(device, timer):
         e3 = _check(f"decode[{name}] l", l, r_l, TOL[dt])
         worst[dt] = max(worst[dt], e1)
         print(f"  decode {name:31s} out err {e1:.3e}  m err {e2:.3e}  l err {e3:.3e}")
+        empty = ~mask.any(dim=1)
+        if empty.any():                     # what the TPU kernel gives there
+            assert (m[empty] == dec_k.NEG_INF).all() and (l[empty] == s).all(), name
+            _check(f"decode[{name}] mean of V", out[empty],
+                   v.float().mean(dim=1)[empty][:, :, None, :].expand(-1, -1, g, -1),
+                   TOL[dt])
 
     dt = torch.bfloat16
     g = H // KV
@@ -349,6 +482,8 @@ def check_decode(device, timer):
     err = _check("decode[timed] out", out, dec_k.decode_attention_plain(q, k, v, mask),
                  TOL[dt])
     ms = timer(lambda: dec_k.decode_attention(q, k, v, mask))
+    k_call_ms = call_ms(lambda: dec_k.decode_attention(q, k, v, mask))
+    k_device_ms, k_kernels = device_ms(lambda: dec_k.decode_attention(q, k, v, mask))
     plain_ms = timer(lambda: dec_k.decode_attention_plain(q, k, v, mask))
     ql = q.reshape(B, H, 1, D)
     kl, vl = k.transpose(1, 2), v.transpose(1, 2)
@@ -362,6 +497,8 @@ def check_decode(device, timer):
         lib = lambda: F.scaled_dot_product_attention(ql, ke, ve, attn_mask=am)  # noqa: E731
     _check("decode[timed] vs library", out.reshape(B, H, 1, D), lib(), TOL[dt])
     library_ms = timer(lib)
+    lib_call_ms = call_ms(lib)
+    lib_device_ms, lib_kernels = device_ms(lib)
     es = q.element_size()
     n_valid = int(mask.sum().item())
     # the kernel loads only valid slots, so the bound counts those
@@ -375,10 +512,13 @@ def check_decode(device, timer):
         "replaces": "src/repro/kernels/decode_attention.py:67",
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "call_ms": k_call_ms, "device_ms": k_device_ms,
+        "device_kernels_per_call": k_kernels, "library_call_ms": lib_call_ms,
+        "library_device_ms": lib_device_ms, "library_kernels_per_call": lib_kernels,
         "shape": f"q({B},{KV},{g},{D}) kv({B},{MAX_LEN},{KV},{D}) bf16, "
                  f"{lengths[0]} valid slots a row (bound counts valid slots)",
         "splits": dec_k.num_splits(B, KV, MAX_LEN, sms),
+        "cluster": dec_k.cluster_size(dec_k.num_splits(B, KV, MAX_LEN, sms)),
         "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
         "all_slots_bound_ms": (2 * B * MAX_LEN * KV * D * es) / HBM_BW * 1e3,
         "max_abs_err_all_bf16": worst[torch.bfloat16],
@@ -693,8 +833,7 @@ def run_trace(device, args, cfg, max_engines=None):
     from repro_torch.launch import serve
 
     pool = VariantPool(cfg)
-    for mod in KERNELS.values():
-        mod.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     report = serve.serve_trace(
@@ -705,6 +844,7 @@ def run_trace(device, args, cfg, max_engines=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = {name: mod.launches for name, mod in KERNELS.items()}
+    assert_k1_wgmma(cfg.name, counts["flash_attention"])
     peak = torch.cuda.max_memory_allocated()
 
     runs = report["runs"]
@@ -989,8 +1129,7 @@ def train_phase(device, args):
             rec["prof_t0"] = time.perf_counter()
         rec["prev"], rec["counts"] = snap, now
 
-    for mod in KERNELS.values():
-        mod.launches = 0
+    reset_counts()
     fab_k.copied_bytes = 0
     gc.collect()
     torch.cuda.empty_cache()
@@ -1003,6 +1142,7 @@ def train_phase(device, args):
     torch.cuda.synchronize()
     wall = time.time() - t0
     total = counts()
+    assert_k1_wgmma("train", total["flash_attention"])
     peak = torch.cuda.max_memory_allocated()
     assert len(losses) == steps and total["flash_attention_bwd"] == steps * n_layers
     ev = rec["events"]
@@ -1217,6 +1357,8 @@ def main(argv=None):
             print(f"  ptxas {src}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers "
                   f"a thread, {sum(1 for x in spills if x)} with spills "
                   f"(most {max(spills, default=0)} bytes)")
+        for line in sorted(set(re.findall(r"^.*(?:wgmma|setmaxnreg).*$", log, re.M))):
+            print(f"  ptxas {src}: {line.strip()[:200]}")
 
     kernels = []
     if args.phase in ("all", "kernels"):
@@ -1229,6 +1371,14 @@ def main(argv=None):
             lib = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.4f} ms"
             print(f"  {kd['name']}: {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']})")
+            if "device_ms" in kd:
+                lcall = kd.get("library_call_ms")
+                print(f"    {kd['name']}: call {kd['call_ms']:.4f} ms, device "
+                      f"{kd['device_ms']:.4f} ms ({kd['device_kernels_per_call']:g} "
+                      f"kernels a call); library: "
+                      + (f"call {lcall:.4f} ms, " if lcall is not None else "")
+                      + f"device {kd['library_device_ms']:.4f} ms "
+                      f"({kd['library_kernels_per_call']:g} kernels a call)")
         del timer
         torch.cuda.empty_cache()
     paths = {}      # path -> the launch counts read right after it ran
@@ -1247,6 +1397,9 @@ def main(argv=None):
                                       if c[kd["name"]]}
             if kd["launches"] <= 0:
                 raise AssertionError(f"{kd['name']} was not launched on the main path")
+            if kd["name"] == "flash_attention":
+                kd["launches_by_route"] = {p: r for p, r in K1_ROUTES.items()
+                                           if p != "flash[timed]"}
 
     if args.phase == "profile":
         profile_phase(device, args)

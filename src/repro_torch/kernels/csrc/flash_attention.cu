@@ -18,14 +18,16 @@
 //     `ldmatrix` reads them without bank conflicts; K and V arrive by
 //     `cp.async`, the next K tile while the softmax and the second product of
 //     the current one run, the next V tile during the next scores, each in its
-//     one buffer (52 KB a block at D = 128, four blocks an SM); the score tile never
-//     leaves registers: its accumulator layout is the A-operand layout of the
-//     second product, so P is only rounded to bf16 in place;
+//     one buffer; the score tile never leaves registers: its accumulator
+//     layout is the A-operand layout of the second product, so P is only
+//     rounded to bf16 in place;
 //   * fp32 inputs: both products are fp32 FMAs on the CUDA cores (exact
 //     inputs, no tensor-core rounding), 256 threads a block. This path is
 //     bound by its own arithmetic; the parity tests use it, the serving path
 //     (bf16) does not.
-// `wgmma`, TMA and a pipelined K/V ring are the next steps, not taken here.
+// bf16 at D = 64 and 128 (the serving and training shapes) runs instead on
+// the `wgmma` + TMA kernel of flash_attention_sm90.cu; these two paths keep
+// fp32 and the other head dims (16 in the smoke configs, 256 for gemma2).
 // What the design does about the work it can avoid:
 //   * the loop visits only the KV tiles a q tile can see: it stops at the
 //     causal diagonal and, with a window, starts at the first tile holding a
@@ -41,22 +43,12 @@
 // sees nothing in a visited tile gathers no garbage.
 #include <cstdint>
 
-#include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
 constexpr int BM = 64;        // q rows per block
 constexpr int kThreads = 256; // 16 x 16: thread (ty, tx) owns rows 4*ty..4*ty+3
-
-struct FlashArgs {
-  const void *q, *k, *v;
-  void* out;
-  float* lse;
-  int B, H, KV, Sq, S, D;
-  i64 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  float scale, softcap;
-  int causal, window, q_offset;
-};
 
 // ---------------------------------------------------------------------------
 // fp32 path: FMAs on the CUDA cores
@@ -476,12 +468,13 @@ int launch_mma(const FlashArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// D = 64 and 128 in bf16 are the `wgmma` route's (flash_attention_sm90.cu).
 int launch_mma_d(const FlashArgs& a, cudaStream_t stream) {
   switch (a.D) {
     case 16: return launch_mma<16, 64>(a, stream);
-    case 64: return launch_mma<64, 64>(a, stream);
-    case 128: return launch_mma<128, 64>(a, stream);
     case 256: return launch_mma<256, 32>(a, stream);
+    case 64:
+    case 128: return -4;
     default: return -1;
   }
 }
@@ -512,8 +505,12 @@ int launch_d(const FlashArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// Returns 0, a cudaError_t of the launch, or -1 (head dim). dtype: 0 = float32,
-// 1 = bfloat16 (tensor-core path). Strides are in elements; the last dim of q, k, v and out is
+// Returns 0, a cudaError_t of the launch, -1 (head dim), -4 (the route does
+// not take this dtype or head dim) or 1000 + a CUresult (tensor map).
+// dtype: 0 = float32, 1 = bfloat16. route: 0 = fp32 FMAs (float32), 1 =
+// `mma.sync` (bfloat16, D = 16 or 256), 2 = `wgmma` + TMA (bfloat16, D = 64 or
+// 128, flash_attention_sm90.cu); the wrapper picks it from the dtype and the
+// head dim alone. Strides are in elements; the last dim of q, k, v and out is
 // contiguous and every row start is 16-byte aligned. window <= 0: no window.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
@@ -521,10 +518,16 @@ extern "C" int flash_attention_fwd(
     i64 q_sb, i64 q_sh, i64 q_ss, i64 k_sb, i64 k_sh, i64 k_ss,
     i64 v_sb, i64 v_sh, i64 v_ss, i64 o_sb, i64 o_sh, i64 o_ss,
     float scale, float softcap, int causal, int window, int q_offset,
-    int dtype, void* stream) {
+    int dtype, int route, void* stream) {
   FlashArgs a{q, k, v, out, lse, B, H, KV, Sq, S, D,
               q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
               scale, softcap, causal, window, q_offset};
   cudaStream_t st = (cudaStream_t)stream;
-  return dtype == 1 ? launch_mma_d(a, st) : launch_d(a, st);
+  if (dtype != (route == 0 ? 0 : 1)) return -4;  // the route's element type
+  switch (route) {
+    case 0: return launch_d(a, st);
+    case 1: return launch_mma_d(a, st);
+    case 2: return (D == 64 || D == 128) ? flash_attention_sm90(a, st) : -4;
+    default: return -4;
+  }
 }

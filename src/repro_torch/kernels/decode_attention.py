@@ -3,8 +3,10 @@ the hand-written CUDA kernel ``csrc/decode_attention.cu`` and, beside it, the
 plain PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/decode_attention.py::decode_attention``.
-The kernel's design notes (memory-bound; split over the cache length and
-merged with the flash-decode rule) are at the top of the ``.cu`` source.
+One launch a call: the blocks of a (batch, kv head) form a thread-block
+cluster, each takes a share of the row's valid slots and they merge through
+distributed shared memory. The kernel's design notes (memory-bound; what the
+design does about it) are at the top of the ``.cu`` source.
 
 Device rule: a CUDA tensor launches the kernel or raises; the plain version
 runs only for a tensor that lies on the CPU.
@@ -23,8 +25,9 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, NEG_INF,
                                                  _aligned_view, _resolve_scale)
 
 MAX_GROUP = 8
+MAX_CLUSTER = 8       # the portable thread-block cluster size
 MIN_ROWS_PER_SPLIT = 64
-BLOCKS_PER_SM = 4     # how many blocks per SM the split over S aims for
+BLOCKS_PER_SM = 2     # how many blocks per SM the split aims for
 
 launches = 0          # kernel launches made by :func:`decode_attention`
 
@@ -37,7 +40,7 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _build.load().decode_attention_fwd
-        fn.argtypes = ([_PTR] * 9 + [_INT] * 6 + [_I64] * 8
+        fn.argtypes = ([_PTR] * 7 + [_INT] * 7 + [_I64] * 8
                        + [_F32, _F32, _INT, _PTR])
         fn.restype = _INT
         _fn = fn
@@ -65,10 +68,22 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def num_splits(batch: int, kv_heads: int, s: int, sm_count: int) -> int:
-    """Chunks the cache length is cut into: enough blocks to give every SM
-    ``BLOCKS_PER_SM`` of them, but no chunk under ``MIN_ROWS_PER_SPLIT``."""
+    """Shares the valid slots of a row are cut into, one block each: about
+    ``BLOCKS_PER_SM`` blocks for every SM, at most one cluster
+    (``MAX_CLUSTER``), no share that could only hold fewer than
+    ``MIN_ROWS_PER_SPLIT`` of the S slots, and a power of two, so that no
+    block of the cluster is idle."""
     want = math.ceil(BLOCKS_PER_SM * sm_count / (batch * kv_heads))
-    return max(1, min(want, math.ceil(s / MIN_ROWS_PER_SPLIT)))
+    n = max(1, min(want, MAX_CLUSTER, math.ceil(s / MIN_ROWS_PER_SPLIT)))
+    return 1 << (n.bit_length() - 1)
+
+
+def cluster_size(nsplit: int) -> int:
+    """Blocks of one (batch, kv head): the power of two that holds
+    ``nsplit`` shares (the blocks past ``nsplit`` take an empty share)."""
+    if not 1 <= nsplit <= MAX_CLUSTER:
+        raise ValueError(f"splits must be in 1..{MAX_CLUSTER} (one cluster), got {nsplit}")
+    return 1 << (nsplit - 1).bit_length()
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,7 +100,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cache's native layout (any view whose last dim is contiguous);
     mask: (B, S) bool, the valid cache slots. Returns (B, KV, G, D), plus the
     merged online-softmax stats (m, l), each (B, KV, G, 1) fp32, when
-    ``return_stats``. ``splits`` overrides the number of chunks over S."""
+    ``return_stats``. ``splits`` (1..8) overrides the number of shares the
+    valid slots are cut into. A row with no valid slot gives what the TPU
+    kernel gives: the mean of V, m = -1e30 and l = S."""
     global launches
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, mask, softcap=softcap,
@@ -112,19 +129,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k, v = _aligned_view(k), _aligned_view(v)
     if splits is None:
         splits = num_splits(b, kv, s, _sm_count(q.device))
+    cluster = cluster_size(int(splits))
     dev = q.device
     out = torch.empty((b, kv, g, d), dtype=q.dtype, device=dev)
-    m_out = torch.empty((b, kv, g, 1), dtype=torch.float32, device=dev)
-    l_out = torch.empty((b, kv, g, 1), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((b, kv, splits, g, d), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b, kv, splits, g, 2), dtype=torch.float32, device=dev)
+    m_out = l_out = None
+    if return_stats:
+        m_out = torch.empty((b, kv, g, 1), dtype=torch.float32, device=dev)
+        l_out = torch.empty((b, kv, g, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(),
-            b, s, kv, g, d, int(splits),
+            out.data_ptr(), m_out.data_ptr() if return_stats else None,
+            l_out.data_ptr() if return_stats else None,
+            b, s, kv, g, d, int(splits), cluster,
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             mask.stride(0), mask.stride(1),

@@ -1,9 +1,18 @@
 """Flash attention (prefill) for the H100: wrapper of the hand-written CUDA
-kernel ``csrc/flash_attention.cu`` and, beside it, the plain PyTorch version.
+kernels and, beside them, the plain PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``.
-The kernel's design notes (what bounds it on the card and what the design
-does about it) are at the top of the ``.cu`` source.
+Three routes, chosen by :func:`route` from the dtype and the head dim alone:
+
+* ``wgmma``: bf16 at D = 64 and 128 (the serving and training shapes),
+  ``csrc/flash_attention_sm90.cu``: TMA-fed K/V ring, producer and consumer
+  warpgroups, both products on ``wgmma``;
+* ``mma``: bf16 at the other head dims (16, 256), ``csrc/flash_attention.cu``,
+  ``mma.sync`` with ``cp.async`` copies;
+* ``fma``: fp32, ``csrc/flash_attention.cu``, FMAs on the CUDA cores.
+
+The kernels' design notes (what bounds them on the card and what the design
+does about it) are at the top of the ``.cu`` sources.
 
 Device rule: a CUDA tensor launches the kernel or raises; the plain version
 runs only for a tensor that lies on the CPU.
@@ -21,7 +30,10 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 64, 128, 256)
 
+ROUTES = ("fma", "mma", "wgmma")    # the C entry point's route codes 0, 1, 2
+
 launches = 0          # kernel launches made by :func:`flash_attention`
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 _I64, _INT, _F32, _PTR = (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                           ctypes.c_void_p)
@@ -33,10 +45,18 @@ def _kernel_fn():
     if _fn is None:
         fn = _build.load().flash_attention_fwd
         fn.argtypes = ([_PTR] * 5 + [_INT] * 6 + [_I64] * 12
-                       + [_F32, _F32, _INT, _INT, _INT, _INT, _PTR])
+                       + [_F32, _F32, _INT, _INT, _INT, _INT, _INT, _PTR])
         fn.restype = _INT
         _fn = fn
     return _fn
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a (dtype, head dim) runs on. Nothing else decides it: a
+    build or launch error raises, it never moves a call to another route."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if d in (64, 128) else "mma"
+    return "fma"
 
 
 def _resolve_scale(scale: Optional[float], d: int) -> float:
@@ -96,7 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layout, plus the per-row log-sum-exp (B, H, Sq) fp32 when ``return_lse``.
 
     ``q_offset``: global position of q row 0 (K/V stay whole). bf16 runs on
-    the tensor cores, fp32 as fp32 FMAs."""
+    the tensor cores, fp32 as fp32 FMAs (:func:`route`)."""
     global launches
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -120,6 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.stride(-1) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    rt = route(q.dtype, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel_fn()(
@@ -131,8 +152,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             out.stride(0), out.stride(1), out.stride(2),
             _resolve_scale(scale, d), float(softcap), int(causal),
             int(window) if window is not None else 0, int(q_offset),
-            1 if q.dtype == torch.bfloat16 else 0, stream)
+            int(q.dtype == torch.bfloat16), ROUTES.index(rt), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed (code {err})")
+        raise RuntimeError(f"flash_attention kernel launch failed (route {rt}, code {err})")
     launches += 1
+    launches_by_route[rt] += 1
     return (out, lse) if return_lse else out

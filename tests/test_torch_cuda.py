@@ -40,6 +40,86 @@ def test_flash_kernel_vs_plain(device, dtype, b, h, kv, s, d, window, softcap):
     torch.testing.assert_close(lse, want_lse, atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("contiguous", [False, True], ids=["strided", "contiguous"])
+@pytest.mark.parametrize("b,h,kv,sq,s,d,window,softcap,q_offset,causal", [
+    (2, 6, 2, 77, 77, 128, None, 0.0, 0, True),       # ragged, G 3
+    (2, 4, 4, 200, 200, 64, None, 0.0, 0, True),      # G 1
+    (1, 16, 2, 192, 192, 128, None, 0.0, 0, True),    # G 8
+    (2, 6, 2, 90, 190, 64, 64, 0.0, 100, True),       # window with q_offset
+    (2, 6, 2, 90, 190, 128, 70, 0.0, 100, True),
+    (2, 6, 2, 256, 256, 128, None, 30.0, 0, True),    # soft cap
+    (1, 6, 2, 100, 77, 128, None, 0.0, 0, False),     # non-causal, ragged
+    (2, 24, 8, 512, 512, 128, None, 0.0, 0, True)])   # the serving shape
+def test_flash_wgmma_route_vs_plain(device, contiguous, b, h, kv, sq, s, d, window,
+                                    softcap, q_offset, causal):
+    """bf16 at D 64 / 128 runs on the wgmma + TMA kernel, on the model's
+    strided views and on contiguous (B, H, S, D) tensors, lse included."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    if contiguous:
+        q, k, v = (torch.randn((b, n, t, d), generator=gen, device=device).to(torch.bfloat16)
+                   for n, t in ((h, sq), (kv, s), (kv, s)))
+    else:
+        q, k, v = (torch.randn((b, t, n, d), generator=gen, device=device)
+                   .to(torch.bfloat16).transpose(1, 2) for n, t in ((h, sq), (kv, s), (kv, s)))
+    assert fa_k.route(torch.bfloat16, d) == "wgmma"
+    before = dict(fa_k.launches_by_route)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+              return_lse=True)
+    out, lse = fa_k.flash_attention(q, k, v, **kw)
+    assert fa_k.launches_by_route["wgmma"] == before["wgmma"] + 1
+    assert fa_k.launches_by_route["mma"] == before["mma"]
+    want, want_lse = fa_k.flash_attention_plain(q, k, v, **kw)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,d,rt", [
+    (torch.bfloat16, 128, "fma"), (torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, 64, "mma"), (torch.float32, 128, "wgmma"),
+    (torch.float32, 16, "mma"), (torch.bfloat16, 16, "wgmma")])
+def test_flash_entry_point_refuses_a_route_off_its_dtype_or_head_dim(device, dtype, d, rt):
+    """The C entry point returns -4, and launches nothing, for a route that
+    does not take the dtype or the head dim (:func:`route` never asks)."""
+    q = torch.zeros((1, 2, 8, d), dtype=dtype, device=device)
+    out = torch.empty_like(q)
+    lse = torch.empty((1, 2, 8), dtype=torch.float32, device=device)
+    err = fa_k._kernel_fn()(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        1, 2, 2, 8, 8, d, *q.stride()[:3], *q.stride()[:3], *q.stride()[:3],
+        *out.stride()[:3], d ** -0.5, 0.0, 1, 0, 0, int(dtype == torch.bfloat16),
+        fa_k.ROUTES.index(rt), torch.cuda.current_stream().cuda_stream)
+    assert err == -4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", list(range(1, 9)))
+@pytest.mark.parametrize("lengths,splits", [
+    ([0, 520, 1], None),           # an all-masked row, a long one, a single valid slot
+    ([3, 0, 5], 8),                # fewer valid slots than blocks in the cluster
+    ([1000, 7, 0], 3)])            # an explicit, odd split
+def test_decode_edge_rows_one_launch(device, dtype, g, lengths, splits):
+    """One launch a call; an all-masked row gives what the TPU kernel gives:
+    the mean of V, m = -1e30 and l = S."""
+    b, kv, s, d = len(lengths), 2, 1024, 128
+    gen = torch.Generator(device=device).manual_seed(8)
+    q = torch.randn((b, kv, g, d), generator=gen, device=device).to(dtype)
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=device).to(dtype)
+            for _ in range(2))
+    mask = torch.arange(s, device=device)[None, :] < torch.tensor(lengths, device=device)[:, None]
+    before = dec_k.launches
+    out, m, l = dec_k.decode_attention(q, k, v, mask, return_stats=True, splits=splits)
+    assert dec_k.launches == before + 1
+    want = dec_k.decode_attention_plain(q, k, v, mask, return_stats=True)
+    for got, ref_ in zip((out, m, l), want):
+        atol = TOL[dtype] * min(1.0, ref_.float().abs().max().item())
+        torch.testing.assert_close(got.float(), ref_.float(), atol=atol, rtol=TOL[dtype])
+    empty = ~mask.any(dim=1)
+    assert (m[empty] == dec_k.NEG_INF).all() and (l[empty] == s).all()
+    mean_v = v.float().mean(dim=1)[empty][:, :, None, :].expand(-1, -1, g, -1)
+    torch.testing.assert_close(out[empty].float(), mean_v, atol=TOL[dtype], rtol=TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,kv,g,s,d", [(8, 8, 3, 1024, 128), (2, 2, 8, 192, 64),
                                         (2, 2, 1, 32, 16), (1, 4, 5, 130, 256)])
