@@ -20,12 +20,20 @@ Phases, each of which fails the run with a non-zero exit code:
    output averaged over hundreds of slots is of order 0.1); each kernel is
    timed (CUDA events, L2 flushed before every launch, median) beside its
    plain version, one library call where there is one, and its roofline
-   bound. Flash attention runs on three routes chosen by (dtype, head dim):
-   each case prints its route, and the serving-shape timing must run on the
-   ``wgmma`` + TMA kernel; flash and decode attention also report, for the
-   kernel and the library call alike, the time of a call as its caller sees
-   it (the device idle before it) and the device time of its kernels
-   (``torch.profiler``);
+   bound. Flash attention and its backward run on three routes each, chosen
+   by (dtype, head dim): each case prints its route, and the serving- and
+   training-shape timings must run on the ``wgmma`` + TMA kernels; rows that
+   see no column (a window and a ``q_offset`` past ``S - 1 + window``) must
+   give the mean of V and ``lse = -1e30`` on every route. The backward is
+   checked with delta given and with delta computed inside from the
+   forward's output (as ``ops`` calls it). The WKV recurrence runs through
+   both entries: the folded one of the reference's signature, and the
+   model-layout one on (B, S, H, D) views in bf16 / fp32, which must equal
+   the folded entry bit for bit. Flash and decode attention, the backward and
+   the WKV call also report the time of a call as its caller sees it (the
+   device idle before it) and the device time of their kernels
+   (``torch.profiler``), beside the library call's where there is one (the
+   SDPA backward alone: ``torch.autograd.grad`` after one forward);
 3. main paths at full width through ``repro_torch.launch.serve``, one after
    the other, each a gateway start-up and a short request trace with a node
    disconnect in the middle, every share run through the engine of its
@@ -36,8 +44,9 @@ Phases, each of which fails the run with a non-zero exit code:
    (the selective scan in each of its 7 Mamba layers of every prefill, flash
    and decode attention in its attention layer; one engine resident at a
    time). Every launch count is set to 0 just before a trace and checked
-   just after, and every flash-attention launch of a trace (and of the
-   train run) must have gone through the ``wgmma`` route; the prefill
+   just after, and every flash-attention launch of a trace (and every
+   forward and backward launch of the train run) must have gone through the
+   ``wgmma`` route; the prefill
    logits of one level are then held against the same engine with the
    kernels off (jamba: its first Mamba layer in fp32 copies; the whole
    model's bf16 difference is printed). Each trace's engines are freed
@@ -179,22 +188,34 @@ class Timer:
 
 
 def reset_counts():
-    """Every kernel's launch count, and K1's count by route, to 0."""
+    """Every kernel's launch count, and K1's and K5's counts by route, to 0."""
     for mod in KERNELS.values():
         mod.launches = 0
     fa_k.launches_by_route = dict.fromkeys(fa_k.ROUTES, 0)
+    fab_k.launches_by_route = dict.fromkeys(fab_k.ROUTES, 0)
 
 
 K1_ROUTES = {}   # path -> K1's launches by route, read right after the path ran
+K5_ROUTES = {}   # the same for K5
+
+
+def _assert_wgmma(mod, record, kernel, where, n):
+    routes = dict(mod.launches_by_route)
+    assert routes["wgmma"] == n and sum(routes.values()) == n, (
+        f"{where}: {kernel} launches by route {routes}, expected all {n} on wgmma")
+    record[where] = routes
 
 
 def assert_k1_wgmma(where, n):
     """Every one of the ``n`` K1 launches counted since the last reset went
     through the ``wgmma`` route."""
-    routes = dict(fa_k.launches_by_route)
-    assert routes["wgmma"] == n and sum(routes.values()) == n, (
-        f"{where}: K1 launches by route {routes}, expected all {n} on wgmma")
-    K1_ROUTES[where] = routes
+    _assert_wgmma(fa_k, K1_ROUTES, "K1", where, n)
+
+
+def assert_k5_wgmma(where, n):
+    """Every one of the ``n`` K5 calls counted since the last reset went
+    through the ``wgmma`` route."""
+    _assert_wgmma(fab_k, K5_ROUTES, "K5", where, n)
 
 
 def call_ms(fn, warmup: int = 3, iters: int = 15) -> float:
@@ -217,13 +238,14 @@ def call_ms(fn, warmup: int = 3, iters: int = 15) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 15, tries: int = 3):
+def device_ms(fn, iters: int = 15, tries: int = 3, label: str = ""):
     """Device time of one call: the kernels' own time under
     ``torch.profiler``, summed over every kernel the call launches, with L2
     flushed before each call (by a ``bitwise_not_`` over 256 MB, whose
     kernel is left out). Returns (ms a call, kernels a call). A profile that
     recorded no kernel at all (CUPTI drops a session now and then) is taken
-    again, up to ``tries`` times."""
+    again, up to ``tries`` times. With a ``label``, each kernel's time is
+    printed."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
@@ -237,6 +259,9 @@ def device_ms(fn, iters: int = 15, tries: int = 3):
             torch.cuda.synchronize()
         rows = [r for r in _profile_rows(prof) if "bitwise_not" not in r[2]]
         if rows:
+            for dev_us, count, key in rows if label else ():
+                print(f"    {label}: {dev_us / 1e3 / iters:.4f} ms a call, "
+                      f"{count / iters:g} a call: {key[:100]}")
             return sum(r[0] for r in rows) / 1e3 / iters, sum(r[1] for r in rows) / iters
     raise AssertionError(f"the profiler saw no kernel of the timed call in {tries} tries")
 
@@ -312,6 +337,14 @@ def flash_cases():
         ("wgmma s1 d128 g3 contiguous", bf, 2, 6, 2, 1, 1, 128, None, 0.0, 0, True),
         ("wgmma main d128 contiguous", bf, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
         ("wgmma ragged d64 g8 contiguous", bf, 2, 8, 1, 200, 200, 64, 64, 0.0, 0, True),
+        # rows that see no column (q_offset past S - 1 + window) beside rows that
+        # see some, on every route: the mean of V and lse = -1e30 + log S
+        ("wgmma blind rows window32 d128 g3", bf, 2, 6, 2, 64, 200, 128, 32, 0.0, 220, True),
+        ("wgmma blind rows non-causal d64 g1", bf, 1, 4, 4, 100, 150, 64, 40, 0.0, 150, False),
+        ("wgmma blind rows only d128 g8", bf, 1, 16, 2, 128, 300, 128, 64, 30.0, 400, True),
+        ("mma blind rows d16", bf, 2, 4, 2, 40, 40, 16, 8, 0.0, 40, True),
+        ("fma blind rows d64", f32, 2, 4, 2, 64, 100, 64, 16, 0.0, 100, True),
+        ("fma blind rows softcap d128", f32, 1, 4, 1, 70, 130, 128, 50, 30.0, 150, True),
     ]
 
 
@@ -339,12 +372,22 @@ def check_flash(device, timer):
         torch.cuda.synchronize()
         assert fa_k.launches_by_route[rt] == before + 1, (name, rt)
         assert name.startswith("wgmma") <= (rt == "wgmma"), (name, rt)
+        assert name.startswith("mma") <= (rt == "mma"), (name, rt)
+        assert name.startswith("fma") <= (rt == "fma"), (name, rt)
         ref_out, ref_lse = fa_k.flash_attention_plain(q, k, v, **kw)
         assert out.shape == q.shape and out.dtype == dt and lse.shape == (b, h, sq)
         e1 = _check(f"flash[{name}] out", out, ref_out, TOL[dt])
         e2 = _check(f"flash[{name}] lse", lse, ref_lse, TOL[dt])
         worst[dt] = max(worst[dt], e1)
-        print(f"  flash {name:32s} route {rt:5s} out err {e1:.3e}  lse err {e2:.3e}")
+        blind = fa_k.blind_rows(sq, s, window, off, device=device)
+        if "blind" in name:
+            assert blind.any(), name
+            mean_v = v.float().mean(dim=2).repeat_interleave(h // kv, dim=1)   # (B, H, D)
+            _check(f"flash[{name}] mean of V", out[:, :, blind],
+                   mean_v[:, :, None, :].expand(-1, -1, int(blind.sum()), -1), TOL[dt])
+            assert (lse[:, :, blind] == fa_k.NEG_INF).all(), name
+        print(f"  flash {name:32s} route {rt:5s} out err {e1:.3e}  lse err {e2:.3e}"
+              + (f"  ({int(blind.sum())} rows see no column)" if blind.any() else ""))
 
     # timing at the serving shape
     dt = torch.bfloat16
@@ -544,6 +587,25 @@ def wkv_cases():
     ]
 
 
+def wkv_model_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # name, dtype of r / k / v (w and u fp32), b, s, h, dk, dv, view: "dense"
+    # (B, S, H, D) tensors, "sliced" (a column slice of a wider tensor),
+    # "transposed" (a transpose of (B, H, S, D) tensors)
+    return [
+        ("model main bf16", bf, B, PROMPT, WKV_BH // B, WKV_D, WKV_D, "dense"),
+        ("model main fp32", f32, B, PROMPT, WKV_BH // B, WKV_D, WKV_D, "dense"),
+        ("model s1 bf16 sliced", bf, 2, 1, 4, 64, 64, "sliced"),
+        ("model s1 fp32 transposed", f32, 2, 1, 4, 64, 64, "transposed"),
+        ("model s200 bf16 sliced", bf, 2, 200, 4, 64, 64, "sliced"),
+        ("model s200 fp32 transposed", f32, 2, 200, 4, 64, 64, "transposed"),
+        ("model dk128 s200 bf16 transposed", bf, 2, 200, 3, 128, 128, "transposed"),
+        ("model dk128 dv96 s70 fp32 sliced", f32, 2, 70, 3, 128, 96, "sliced"),
+        ("model dk24 dv40 s37 bf16", bf, 2, 37, 3, 24, 40, "dense"),
+        ("model smoke d16 s32 bf16 sliced", bf, 2, 32, 4, 16, 16, "sliced"),
+    ]
+
+
 def _wkv_inputs(gen, bh, s, dk, dv, dt, device):
     """As the reference's kernel test draws them: decays in (0, 1), small k
     and u (u stays fp32, as the model hands it over)."""
@@ -553,6 +615,29 @@ def _wkv_inputs(gen, bh, s, dk, dv, dt, device):
     w = torch.sigmoid(torch.randn((bh, s, dk), generator=gen, device=device)).to(dt)
     u = torch.randn((bh, dk), generator=gen, device=device) * 0.1
     return r, k, v, w, u
+
+
+def _wkv_model_inputs(gen, b, s, h, dk, dv, dt, device, view="dense"):
+    """The model-layout entry's inputs, (B, S, H, D): r, k, v in ``dt``, w
+    and u in fp32, drawn as :func:`_wkv_inputs` draws them, as the views the
+    case names."""
+    def make(d, dtype, scale=1.0, squash=False):
+        shape = {"dense": (b, s, h, d), "sliced": (b, s, h, d + 8),
+                 "transposed": (b, h, s, d)}[view]
+        x = torch.randn(shape, generator=gen, device=device) * scale
+        x = (torch.sigmoid(x) if squash else x).to(dtype)
+        if view == "sliced":
+            return x[..., :d]
+        return x.transpose(1, 2) if view == "transposed" else x
+    r, k = make(dk, dt), make(dk, dt, 0.3)
+    v, w = make(dv, dt), make(dk, torch.float32, squash=True)
+    u = torch.randn((h, dk), generator=gen, device=device) * 0.1
+    return r, k, v, w, u
+
+
+def _fold(t):
+    b, s, h, d = t.shape
+    return t.float().transpose(1, 2).reshape(b * h, s, d).contiguous()
 
 
 def check_wkv(device, timer):
@@ -569,35 +654,77 @@ def check_wkv(device, timer):
         e2 = _check(f"wkv[{name}] s_final", st, ref_st, WKV_TOL[dt])
         worst[dt] = max(worst[dt], e1, e2)
         print(f"  wkv {name:34s} y err {e1:.3e}  s_final err {e2:.3e}")
+    # the model-layout entry: against its plain version, and bit for bit
+    # against the folded entry on fp32 copies of the same values (bf16 ->
+    # fp32 is exact and the kernel sums in the same order)
+    for (name, dt, b, s, h, dk, dv, view) in wkv_model_cases():
+        ins = _wkv_model_inputs(gen, b, s, h, dk, dv, dt, device, view)
+        before = wkv_k.launches
+        y, st = wkv_k.rwkv6_wkv_model(*ins)
+        torch.cuda.synchronize()
+        assert wkv_k.launches == before + 1, name
+        ref_y, ref_st = wkv_k.rwkv6_wkv_model_plain(*ins)
+        assert y.shape == (b, s, h, dv) and y.dtype == torch.float32
+        assert st.shape == (b, h, dk, dv) and st.dtype == torch.float32
+        e1 = _check(f"wkv[{name}] y", y, ref_y, WKV_TOL[dt])
+        e2 = _check(f"wkv[{name}] s_final", st, ref_st, WKV_TOL[dt])
+        worst[dt] = max(worst[dt], e1, e2)
+        r, k, v, w, u = ins
+        fy, fst = wkv_k.rwkv6_wkv(_fold(r), _fold(k), _fold(v), _fold(w), u.repeat(b, 1))
+        same = (torch.equal(fy.reshape(b, h, s, dv).transpose(1, 2), y)
+                and torch.equal(fst.reshape(b, h, dk, dv), st))
+        assert same, f"wkv[{name}]: the model-layout entry differs from the folded one"
+        print(f"  wkv {name:34s} y err {e1:.3e}  s_final err {e2:.3e}  (= folded entry)")
 
-    # timing at the serving shape, fp32 as the model's fold hands it over
-    ins = _wkv_inputs(gen, WKV_BH, PROMPT, WKV_D, WKV_D, torch.float32, device)
-    y, st = wkv_k.rwkv6_wkv(*ins)
-    ref_y, ref_st = wkv_k.rwkv6_wkv_plain(*ins)
-    err = max(_check("wkv[timed] y", y, ref_y, WKV_TOL[torch.float32]),
-              _check("wkv[timed] s_final", st, ref_st, WKV_TOL[torch.float32]))
-    ms = timer(lambda: wkv_k.rwkv6_wkv(*ins))
-    plain_ms = timer(lambda: wkv_k.rwkv6_wkv_plain(*ins))
-    bf_ins = [t.to(torch.bfloat16) for t in ins[:4]] + [ins[4]]
-    bf16_ms = timer(lambda: wkv_k.rwkv6_wkv(*bf_ins))
-    del bf_ins
-    n_in = WKV_BH * PROMPT * (3 * WKV_D + WKV_D)          # r, k, w and v
-    nbytes = (4 * n_in + 4 * WKV_BH * WKV_D               # inputs and u
-              + 4 * WKV_BH * PROMPT * WKV_D               # y
-              + 4 * WKV_BH * WKV_D * WKV_D)               # s_final
+    # timing at the serving shape: the model-layout entry as rwkv_time_mix
+    # calls it (bf16 r, k, v; fp32 w, u, y), and the folded entry in fp32 as
+    # the model's fold handed it over before
+    nh = WKV_BH // B
+    mins = _wkv_model_inputs(gen, B, PROMPT, nh, WKV_D, WKV_D, torch.bfloat16, device)
+    y, st = wkv_k.rwkv6_wkv_model(*mins)
+    ref_y, ref_st = wkv_k.rwkv6_wkv_model_plain(*mins)
+    err = max(_check("wkv[timed] y", y, ref_y, WKV_TOL[torch.bfloat16]),
+              _check("wkv[timed] s_final", st, ref_st, WKV_TOL[torch.bfloat16]))
+    ms = timer(lambda: wkv_k.rwkv6_wkv_model(*mins))
+    k_call_ms = call_ms(lambda: wkv_k.rwkv6_wkv_model(*mins))
+    k_device_ms, k_kernels = device_ms(lambda: wkv_k.rwkv6_wkv_model(*mins))
+    plain_ms = timer(lambda: wkv_k.rwkv6_wkv_model_plain(*mins), warmup=1, iters=5)
+    r, k, v, w, u = mins
+    fins = [_fold(r), _fold(k), _fold(v), _fold(w), u.repeat(B, 1)]
+    folded_ms = timer(lambda: wkv_k.rwkv6_wkv(*fins))
+    # what the model paid before: the four fold copies, the call, the unfold
+    fold_call = lambda: wkv_k.rwkv6_wkv(  # noqa: E731
+        *[_fold(t) for t in (r, k, v, w)], u.repeat(B, 1))[0].reshape(
+            B, nh, PROMPT, WKV_D).transpose(1, 2).contiguous()
+    fold_call_ms = timer(fold_call)
+    bf_fins = [t.to(torch.bfloat16) for t in fins[:4]] + [fins[4]]
+    folded_bf16_ms = timer(lambda: wkv_k.rwkv6_wkv(*bf_fins))
+    del bf_fins, fins
+    n_el = WKV_BH * PROMPT * WKV_D                       # elements of one (B,S,H,D) tensor
+    out_bytes = 4 * n_el + 4 * WKV_BH * WKV_D * WKV_D    # y and s_final in fp32
+    nbytes = 3 * 2 * n_el + 4 * n_el + 4 * nh * WKV_D + out_bytes   # bf16 r,k,v; fp32 w, u
+    folded_bytes = 4 * 4 * n_el + 4 * WKV_BH * WKV_D + out_bytes    # fp32 r,k,v,w; u per bh
     # per step and state element: r.S (2), k v^T (1), w S + kv (2); the
     # bonus term r.(u*k) is O(Dk) a step
     flops = 5 * WKV_BH * PROMPT * WKV_D * WKV_D
     t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_fb = folded_bytes / HBM_BW * 1e3
     return {
         "name": "rwkv6_wkv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
         "replaces": "src/repro/kernels/rwkv6_wkv.py:55",
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
-        "library_ms": None, "bf16_ms": bf16_ms,
-        "shape": f"r/k/v/w({WKV_BH},{PROMPT},{WKV_D}) fp32, u({WKV_BH},{WKV_D})",
-        "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
+        "library_ms": None, "entry": "rwkv6_wkv_model", "call_ms": k_call_ms,
+        "device_ms": k_device_ms, "device_kernels_per_call": k_kernels,
+        "folded_fp32_ms": folded_ms, "folded_bf16_ms": folded_bf16_ms,
+        "fold_copies_and_call_ms": fold_call_ms,
+        "folded_bound_ms": max(t_fb, t_f),
+        "folded_bound_by": "bytes" if t_fb >= t_f else "operations",
+        "shape": f"r/k/v({B},{PROMPT},{nh},{WKV_D}) bf16, w({B},{PROMPT},{nh},{WKV_D}) fp32, "
+                 f"u({nh},{WKV_D}); folded: ({WKV_BH},{PROMPT},{WKV_D}) fp32",
+        "bytes": nbytes, "folded_bytes": folded_bytes, "flops": flops,
+        "bound_bytes_ms": t_b, "bound_flops_ms": t_f, "folded_bound_bytes_ms": t_fb,
         "max_abs_err_all_bf16": worst[torch.bfloat16],
         "max_abs_err_all_fp32": worst[torch.float32],
     }
@@ -698,7 +825,9 @@ def check_ssm_scan(device, timer):
 # K5
 def flash_bwd_cases():
     bf, f32 = torch.bfloat16, torch.float32
-    # name, dtype, b, h, kv, sq, s, d, window, softcap, q_offset, causal
+    # name, dtype, b, h, kv, sq, s, d, window, softcap, q_offset, causal; the
+    # names ending in "contiguous" hand over (B, H, S, D) tensors, the others
+    # the transposed views of (B, S, H, D) tensors that ops hands over
     return [
         ("train bf16", bf, B, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
         ("train fp32 b2", f32, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
@@ -717,19 +846,31 @@ def flash_bwd_cases():
         ("d256 window64 ragged fp32", f32, 1, 8, 4, 200, 200, 256, 64, 0.0, 0, True),
         ("non-causal ragged fp32", f32, 1, 4, 4, 100, 77, 64, None, 0.0, 0, False),
         ("non-causal ragged bf16", bf, 1, 6, 2, 100, 77, 64, None, 0.0, 0, False),
+        # the wgmma route (bf16, D 64 and 128): ragged Sq / S, window with soft
+        # cap, window with q_offset, G 1 / 3 / 8, non-causal, rows that see no
+        # column, contiguous tensors
+        ("wgmma ragged s200 d64 g8", bf, 1, 8, 1, 200, 200, 64, None, 0.0, 0, True),
+        ("wgmma ragged s77 d128 g3", bf, 2, 6, 2, 77, 77, 128, None, 0.0, 0, True),
+        ("wgmma window64 softcap30 d64 g3", bf, 2, 6, 2, 256, 256, 64, 64, 30.0, 0, True),
+        ("wgmma window70 q_offset100 d128 g1", bf, 2, 4, 4, 90, 190, 128, 70, 0.0, 100, True),
+        ("wgmma window70 q_offset100 d64 g8", bf, 1, 16, 2, 90, 190, 64, 70, 0.0, 100, True),
+        ("wgmma g8 s512 d128", bf, 1, 16, 2, 512, 512, 128, None, 0.0, 0, True),
+        ("wgmma non-causal sq100 s300 d128", bf, 1, 6, 2, 100, 300, 128, None, 0.0, 0, False),
+        ("wgmma blind rows d128 g3", bf, 2, 6, 2, 64, 200, 128, 32, 0.0, 220, True),
+        ("wgmma sq3 d64 g3 contiguous", bf, 2, 6, 2, 3, 3, 64, None, 0.0, 0, True),
+        ("wgmma train d128 contiguous", bf, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
     ]
 
 
-def _bwd_inputs(gen, b, h, kv, sq, s, d, dt, device, **kw):
+def _bwd_inputs(gen, b, h, kv, sq, s, d, dt, device, contiguous=False, **kw):
     """q, k, v, dout in the model's layout (transposed views, as ops hands
-    them over), and lse / delta from the forward's plain version."""
-    q = _rand(gen, (b, sq, h, d), dt, device).transpose(1, 2)
-    k = _rand(gen, (b, s, kv, d), dt, device).transpose(1, 2)
-    v = _rand(gen, (b, s, kv, d), dt, device).transpose(1, 2)
-    dout = _rand(gen, (b, sq, h, d), dt, device).transpose(1, 2)
+    them over) or contiguous, lse / delta from the forward's plain version,
+    and that forward's output."""
+    q, k, v = _flash_inputs(gen, b, h, kv, sq, s, d, dt, device, contiguous=contiguous)
+    dout = (_rand(gen, (b, h, sq, d), dt, device) if contiguous
+            else _rand(gen, (b, sq, h, d), dt, device).transpose(1, 2))
     out, lse = fa_k.flash_attention_plain(q, k, v, return_lse=True, **kw)
-    delta = (dout.float() * out.float()).sum(-1)
-    return q, k, v, dout, lse, delta
+    return (q, k, v, dout, lse, fab_k.delta_of(dout, out)), out
 
 
 def check_flash_bwd(device, timer):
@@ -737,32 +878,63 @@ def check_flash_bwd(device, timer):
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for (name, dt, b, h, kv, sq, s, d, window, cap, off, causal) in flash_bwd_cases():
         kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
-        ins = _bwd_inputs(gen, b, h, kv, sq, s, d, dt, device, **kw)
+        ins, out = _bwd_inputs(gen, b, h, kv, sq, s, d, dt, device,
+                               contiguous=name.endswith("contiguous"), **kw)
+        rt = fab_k.route(dt, d)
+        assert name.startswith("wgmma") <= (rt == "wgmma"), (name, rt)
+        before = fab_k.launches_by_route[rt]
         got = fab_k.flash_attention_bwd(*ins, **kw)
         torch.cuda.synchronize()
+        assert fab_k.launches_by_route[rt] == before + 1, (name, rt)
         want = fab_k.flash_attention_bwd_plain(*ins, **kw)
         errs = []
         for what, x, y, ref_in in zip(("dq", "dk", "dv"), got, want, ins[:3]):
             assert x.shape == ref_in.shape and x.dtype == dt, (what, x.shape, x.dtype)
             errs.append(_check(f"flash_bwd[{name}] {what}", x, y, BWD_TOL[dt]))
         worst[dt] = max(worst[dt], *errs)
-        print(f"  flash_bwd {name:30s} dq {errs[0]:.3e}  dk {errs[1]:.3e}  dv {errs[2]:.3e}")
+        blind = fa_k.blind_rows(sq, s, window, off, device=device)
+        if "blind" in name:      # p = 0 on every pair of a row that sees no column
+            assert blind.any() and (got[0][:, :, blind] == 0).all(), name
+        # the call as ops makes it: delta from the forward's output inside K5
+        got_o = fab_k.flash_attention_bwd(*ins[:5], out=out, **kw)
+        torch.cuda.synchronize()
+        for what, x, y in zip(("dq", "dk", "dv"), got_o, want):
+            errs.append(_check(f"flash_bwd[{name}] {what} (delta from out)", x, y, BWD_TOL[dt]))
+        worst[dt] = max(worst[dt], *errs)
+        print(f"  flash_bwd {name:34s} route {rt:5s} dq {errs[0]:.3e}  dk {errs[1]:.3e}  "
+              f"dv {errs[2]:.3e}; delta from out: {max(errs[3:]):.3e}")
 
     # timing at the training shape (phi4-mini-3.8b, batch 8 x 512, bf16)
     dt = torch.bfloat16
-    ins = _bwd_inputs(gen, B, H, KV, PROMPT, PROMPT, D, dt, device)
-    got = fab_k.flash_attention_bwd(*ins)
+    ins, out = _bwd_inputs(gen, B, H, KV, PROMPT, PROMPT, D, dt, device)
+    assert fab_k.route(dt, D) == "wgmma"
+    got = fab_k.flash_attention_bwd(*ins[:5], out=out)
     want = fab_k.flash_attention_bwd_plain(*ins)
     err = max(_check(f"flash_bwd[timed] {w}", x, y, BWD_TOL[dt])
               for w, x, y in zip(("dq", "dk", "dv"), got, want))
-    ms = timer(lambda: fab_k.flash_attention_bwd(*ins))
+    # timed as ops._Flash.backward calls it: delta = rowsum(dout * out) inside
+    # K5's dq kernel, where SDPA's backward computes its own too
+    k5 = lambda: fab_k.flash_attention_bwd(*ins[:5], out=out)  # noqa: E731
+    reset_counts()
+    ms = timer(k5)
+    assert_k5_wgmma("flash_bwd[timed]", fab_k.launches)
+    k_call_ms = call_ms(k5)
+    k_device_ms, k_kernels = device_ms(k5, label="K5")
+    given_delta_ms = timer(lambda: fab_k.flash_attention_bwd(*ins))
     plain_ms = timer(lambda: fab_k.flash_attention_bwd_plain(*ins))
     fins = [t.float() for t in ins]
     fp32_ms = timer(lambda: fab_k.flash_attention_bwd(*fins))
     del fins
-    # library yardstick: the backward of SDPA, timed as forward + backward
-    # minus forward on the same q, k, v, dout
-    q, k, v, dout = (t.detach().requires_grad_(True) for t in ins[:4])
+    # the separate delta pass the call ran before this PR, for the record
+    dout = ins[3]
+    delta_fn = lambda: fab_k.delta_of(dout, out)  # noqa: E731
+    delta_ms = timer(delta_fn)
+    delta_device_ms, _ = device_ms(delta_fn, label="delta pass")
+    # library yardstick: the backward of SDPA on the same q, k, v, dout. Timed
+    # as forward + backward minus forward (CUDA events), and its device time
+    # alone: the forward runs once with grad, then only
+    # torch.autograd.grad(out, (q, k, v), dout) is profiled
+    q, k, v = (t.detach().requires_grad_(True) for t in ins[:3])
     try:
         F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
@@ -775,7 +947,7 @@ def check_flash_bwd(device, timer):
 
     def fwd_bwd():
         q.grad = k.grad = v.grad = None
-        sdpa().backward(ins[3])
+        sdpa().backward(dout)
 
     fwd_bwd()
     # two bf16 computations of the same gradient: twice the tolerance
@@ -783,7 +955,11 @@ def check_flash_bwd(device, timer):
     with torch.no_grad():
         fwd_ms = timer(sdpa)
     library_ms = timer(fwd_bwd) - fwd_ms
-    del q, k, v, dout
+    lib_out = sdpa()
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (q, k, v), dout,  # noqa: E731
+                                          retain_graph=True)
+    lib_device_ms, lib_kernels = device_ms(lib_bwd, label="SDPA backward")
+    del q, k, v, lib_out, out
     es = ins[0].element_size()
     n_q, n_kv = B * H * PROMPT * D, B * KV * PROMPT * D
     nbytes = (3 * n_q + 4 * n_kv) * es + 2 * 4 * B * H * PROMPT  # q,dout,dq; k,v,dk,dv; lse,delta
@@ -794,11 +970,16 @@ def check_flash_bwd(device, timer):
     t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
     return {
         "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:153",
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
         "library_ms": library_ms, "library_method": method, "library_fwd_ms": fwd_ms,
+        "kernel_route": "wgmma", "call_ms": k_call_ms, "device_ms": k_device_ms,
+        "device_kernels_per_call": k_kernels, "library_device_ms": lib_device_ms,
+        "library_kernels_per_call": lib_kernels, "delta_inside": True,
+        "given_delta_ms": given_delta_ms, "separate_delta_pass_ms": delta_ms,
+        "separate_delta_pass_device_ms": delta_device_ms,
         "fp32_path_ms": fp32_ms,
         "shape": f"q/dout({B},{H},{PROMPT},{D}) kv({B},{KV},{PROMPT},{D}) bf16 causal",
         "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
@@ -1143,6 +1324,7 @@ def train_phase(device, args):
     wall = time.time() - t0
     total = counts()
     assert_k1_wgmma("train", total["flash_attention"])
+    assert_k5_wgmma("train", total["flash_attention_bwd"])
     peak = torch.cuda.max_memory_allocated()
     assert len(losses) == steps and total["flash_attention_bwd"] == steps * n_layers
     ev = rec["events"]
@@ -1372,13 +1554,24 @@ def main(argv=None):
             print(f"  {kd['name']}: {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']})")
             if "device_ms" in kd:
-                lcall = kd.get("library_call_ms")
+                lcall, ldev = kd.get("library_call_ms"), kd.get("library_device_ms")
                 print(f"    {kd['name']}: call {kd['call_ms']:.4f} ms, device "
                       f"{kd['device_ms']:.4f} ms ({kd['device_kernels_per_call']:g} "
-                      f"kernels a call); library: "
+                      f"kernels a call)"
+                      + ("; library: " if ldev is not None else "")
                       + (f"call {lcall:.4f} ms, " if lcall is not None else "")
-                      + f"device {kd['library_device_ms']:.4f} ms "
-                      f"({kd['library_kernels_per_call']:g} kernels a call)")
+                      + (f"device {ldev:.4f} ms ({kd['library_kernels_per_call']:g} "
+                         f"kernels a call)" if ldev is not None else ""))
+            if kd["name"] == "flash_attention_bwd":
+                print(f"    flash_attention_bwd: delta inside; with delta given "
+                      f"{kd['given_delta_ms']:.4f} ms; the separate delta pass it replaces "
+                      f"{kd['separate_delta_pass_ms']:.4f} ms (device "
+                      f"{kd['separate_delta_pass_device_ms']:.4f} ms)")
+            if kd["name"] == "rwkv6_wkv":
+                print(f"    rwkv6_wkv: folded entry fp32 {kd['folded_fp32_ms']:.4f} ms, bf16 "
+                      f"{kd['folded_bf16_ms']:.4f} ms (bound {kd['folded_bound_ms']:.4f} ms, "
+                      f"{kd['folded_bound_by']}); fold copies + folded call + unfold "
+                      f"{kd['fold_copies_and_call_ms']:.4f} ms")
         del timer
         torch.cuda.empty_cache()
     paths = {}      # path -> the launch counts read right after it ran
@@ -1400,6 +1593,9 @@ def main(argv=None):
             if kd["name"] == "flash_attention":
                 kd["launches_by_route"] = {p: r for p, r in K1_ROUTES.items()
                                            if p != "flash[timed]"}
+            if kd["name"] == "flash_attention_bwd":
+                kd["launches_by_route"] = {p: r for p, r in K5_ROUTES.items()
+                                           if p != "flash_bwd[timed]"}
 
     if args.phase == "profile":
         profile_phase(device, args)

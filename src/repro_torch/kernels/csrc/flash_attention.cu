@@ -40,7 +40,8 @@
 //   * the heaviest q tiles (the last ones under a causal mask) are scheduled
 //     first.
 // A probability of a masked column is exactly 0 (not exp(0)), so a row that
-// sees nothing in a visited tile gathers no garbage.
+// sees nothing in a visited tile gathers no garbage; a row that sees no column
+// at all gives what the TPU kernel gives (blind_row in flash_attention.cuh).
 #include <cstdint>
 
 #include "flash_attention.cuh"
@@ -101,7 +102,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs a) {
   const int row_min = a.q_offset + r0;
   const int row_max = a.q_offset + r0 + rows_here - 1;
   const int hi = a.causal ? min(a.S, row_max + 1) : a.S;
-  const int lo = a.window > 0 ? max(0, row_min - a.window + 1) : 0;
+  const int lo = a.window > 0 && !blind_row(row_max, a.S, a.window)
+                     ? max(0, row_min - a.window + 1) : 0;
   const int jt0 = lo / BN;
   const int jt1 = (hi + BN - 1) / BN;
 
@@ -150,7 +152,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs a) {
         bool ok = col < a.S;
         if (a.causal) ok = ok && col <= row;
         if (a.window > 0) ok = ok && col > row - a.window;
-        s[i][c] = ok ? softcap_f(s[i][c] * a.scale, a.softcap) : NEG_INF;
+        s[i][c] = ok ? softcap_f(s[i][c] * a.scale, a.softcap)
+                     : (blind_row(row, a.S, a.window) && col < a.S ? 0.f : NEG_INF);
         mx = fmaxf(mx, s[i][c]);
       }
 #pragma unroll
@@ -198,7 +201,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs a) {
 #pragma unroll
       for (int c = 0; c < CD; ++c)
         op[(i64)r * a.o_ss + tx + 16 * c] = acc[i][c] / denom;
-      if (tx == 0) a.lse[((i64)b * a.H + h) * a.Sq + r] = m[i] + logf(denom);
+      if (tx == 0)
+        a.lse[((i64)b * a.H + h) * a.Sq + r] =
+            (blind_row(a.q_offset + r, a.S, a.window) ? NEG_INF : m[i]) + logf(denom);
     }
   }
 }
@@ -289,7 +294,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(FlashArgs a)
   const int row_min = a.q_offset + r0;
   const int row_max = a.q_offset + r0 + rows_here - 1;
   const int hi = a.causal ? min(a.S, row_max + 1) : a.S;
-  const int lo = a.window > 0 ? max(0, row_min - a.window + 1) : 0;
+  const int lo = a.window > 0 && !blind_row(row_max, a.S, a.window)
+                     ? max(0, row_min - a.window + 1) : 0;
   const int jt0 = lo / BN;
   const int jt1 = (hi + BN - 1) / BN;
 
@@ -359,7 +365,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(FlashArgs a)
           bool ok = col < a.S;
           if (a.causal) ok = ok && col <= row;
           if (a.window > 0) ok = ok && col > row - a.window;
-          if (!ok) val = NEG_INF;
+          if (!ok) val = blind_row(row, a.S, a.window) && col < a.S ? 0.f : NEG_INF;
         }
         s[j][e] = val;
       }
@@ -450,7 +456,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(FlashArgs a)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + warp * 16 + g + 8 * r;
-      if (row < a.Sq) a.lse[((i64)b * a.H + h) * a.Sq + row] = m[r] + logf(denom[r]);
+      if (row < a.Sq)
+        a.lse[((i64)b * a.H + h) * a.Sq + row] =
+            (blind_row(a.q_offset + row, a.S, a.window) ? NEG_INF : m[r]) + logf(denom[r]);
     }
   }
 }

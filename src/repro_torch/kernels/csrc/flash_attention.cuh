@@ -15,6 +15,18 @@ struct FlashArgs {
   int causal, window, q_offset;
 };
 
+// A query row that sees no column: a window hides every column, row - window
+// >= S - 1 (causality hides none of them then). The TPU kernel runs such a row
+// over every column with score NEG_INF, so each has p = exp(0) = 1: its output
+// is the mean of V over the S columns and lse = NEG_INF + log(S). The CUDA
+// routes give it the same: the tiles of a q tile that holds such a row run
+// from column 0, and its columns below S take score 0 (p = 1, the row's
+// maximum) instead of NEG_INF; its lse is NEG_INF + log(denom). A row that
+// sees a column is unchanged: a masked column still has p = 0 exactly.
+__host__ __device__ __forceinline__ bool blind_row(int row, int S, int window) {
+  return window > 0 && row - window >= S - 1;
+}
+
 // The wgmma + TMA kernel (bf16, D = 64 or 128). Returns 0, a cudaError_t of
 // the launch, or 1000 + a CUresult of the tensor-map encoding.
 int flash_attention_sm90(const FlashArgs& a, cudaStream_t stream);

@@ -20,51 +20,31 @@
 //     and dv in fp32, as the TPU grid (b, kv, nk, g*nq) does: the group sum
 //     over the G query heads needs no atomics and no per-head partials.
 //
-// Two code paths share the design:
-//   * bf16 inputs, D <= 128: every product on the tensor cores (`mma.sync`
-//     m16n8k16, fp32 accumulators), 4 warps of 16 rows a block, tiles in shared
-//     memory with a 16-byte row pad for `ldmatrix`, the next tile's copies
-//     (`cp.async`, double-buffered) in flight during the current tile's
-//     products. P and dS never leave registers: their accumulator layout is the
-//     A-operand layout of the next product, so they are only rounded to bf16
-//     in place (as the forward K1 does with P);
-//   * fp32 inputs, and bf16 at D = 256 (too many fp32 accumulators for a warp
-//     of 16 rows): fp32 FMAs on the CUDA cores, 256 threads a block, tiles
-//     widened to fp32 in shared memory with an odd row stride.
-// What bounds it on this card: at the training shape (q (8,24,512,128), kv
-// (8,8,512,128) bf16, causal) the 5 products the function needs take 32
-// GFLOP, 0.033 ms at the tensor cores' peak, and its 110 MB of inputs and
-// outputs 0.033 ms at the memory's rate: the bytes bound it, just. The
-// two-kernel form recomputes the scores and dout.v in both kernels (7
-// products, 45 GFLOP, 0.046 ms), the price of having no atomics; `wgmma`,
-// TMA and a fused form are later work.
+// Three routes, chosen by the wrapper from the dtype and the head dim alone
+// (kernels/flash_attention_bwd.py::route), share the design:
+//   * `wgmma`: bf16 at D = 64 and 128 (the training shapes), the Hopper kernels
+//     of flash_attention_bwd_sm90.cu (TMA rings, producer and consumer
+//     warpgroups, every product on `wgmma`; its design note says what bounds
+//     the backward at the training shape);
+//   * `mma`: bf16 at D = 16 (the smoke configs), every product on the tensor
+//     cores (`mma.sync` m16n8k16, fp32 accumulators), 4 warps of 16 rows a
+//     block, tiles in shared memory with a 16-byte row pad for `ldmatrix`, the
+//     next tile's copies (`cp.async`, double-buffered) in flight during the
+//     current tile's products. P and dS never leave registers: their
+//     accumulator layout is the A-operand layout of the next product, so they
+//     are only rounded to bf16 in place (as the forward K1 does with P);
+//   * `fma`: fp32 inputs, and bf16 at D = 256 (too many fp32 accumulators for
+//     a warp of 16 rows): fp32 FMAs on the CUDA cores, 256 threads a block,
+//     tiles widened to fp32 in shared memory with an odd row stride.
+// The two-kernel form recomputes the scores and dout.v in both kernels (7
+// products where the function needs 5), the price of having no atomics.
 // A masked pair has p = 0 exactly, rows past Sq and columns past S are masked,
 // and a tile that causality or the window hides entirely is never visited.
 #include <cstdint>
 
-#include "common.cuh"
+#include "flash_attention_bwd.cuh"
 
 namespace {
-
-struct BwdArgs {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
-  void *dq, *dk, *dv;
-  int B, H, KV, Sq, S, D;
-  i64 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
-  i64 dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
-  float scale, softcap;
-  int causal, window, q_offset;
-};
-
-// qr: q row inside the call (0..Sq-1 is real), kc: kv column.
-__device__ __forceinline__ bool visible(const BwdArgs& a, int qr, int kc) {
-  bool ok = qr < a.Sq && kc < a.S;
-  const int row = a.q_offset + qr;
-  if (a.causal) ok = ok && kc <= row;
-  if (a.window > 0) ok = ok && kc > row - a.window;
-  return ok;
-}
 
 // p and ds of one pair from the raw product q.k and dp = dout.v.
 template <bool FAST>
@@ -78,27 +58,6 @@ __device__ __forceinline__ void p_ds(float qk, float dp, float lse, float delta,
   }
   p = ok ? (FAST ? __expf(s - lse) : expf(s - lse)) : 0.f;
   ds = p * (dp - delta) * a.scale * dcap;
-}
-
-// The kv tiles (of BN columns) a q tile of rows r0..r0+rows-1 can see.
-__device__ __forceinline__ void kv_range(const BwdArgs& a, int r0, int rows, int BN,
-                                         int& jt0, int& jt1) {
-  const int row_min = a.q_offset + r0;
-  const int row_max = a.q_offset + r0 + rows - 1;
-  const int hi = a.causal ? min(a.S, row_max + 1) : a.S;
-  const int lo = a.window > 0 ? max(0, row_min - a.window + 1) : 0;
-  jt0 = lo / BN;
-  jt1 = hi > lo ? (hi + BN - 1) / BN : jt0;
-}
-
-// The q tiles (of BQ rows) that can see kv columns c0..c0+cols-1.
-__device__ __forceinline__ void q_range(const BwdArgs& a, int c0, int cols, int BQ,
-                                        int& qt0, int& nqt) {
-  const int cmax = c0 + cols - 1;
-  const int lo = a.causal ? max(0, c0 - a.q_offset) : 0;
-  const int hi = a.window > 0 ? min(a.Sq - 1, cmax + a.window - 1 - a.q_offset) : a.Sq - 1;
-  qt0 = lo / BQ;
-  nqt = (cols > 0 && hi >= lo) ? hi / BQ - qt0 + 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -362,7 +321,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path
+// bf16 tensor-core path (D = 16)
 constexpr int kMmaThreads = 128;   // 4 warps x 16 rows
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -710,9 +669,8 @@ int launch_fma_d(const BwdArgs& a, cudaStream_t st) {
   }
 }
 
-template <int D, int BQ>
 int launch_mma(const BwdArgs& a, cudaStream_t st) {
-  constexpr int BM = 64, BN = 64, BK = 64, LD = D + 8;
+  constexpr int D = 16, BM = 64, BN = 64, BK = 64, BQ = 64, LD = D + 8;
   const size_t smem_dq = (size_t)(2 * BM + 4 * BN) * LD * sizeof(__nv_bfloat16);
   int e = launch_k(bwd_dq_mma_kernel<D, BN>, dim3(cdiv(a.Sq, BM), a.H, a.B), kMmaThreads, smem_dq, a, st);
   if (e != 0) return e;
@@ -720,37 +678,41 @@ int launch_mma(const BwdArgs& a, cudaStream_t st) {
   return launch_k(bwd_dkv_mma_kernel<D, BQ>, dim3(cdiv(a.S, BK), a.KV, a.B), kMmaThreads, smem_kv, a, st);
 }
 
-int launch_mma_d(const BwdArgs& a, cudaStream_t st) {
-  switch (a.D) {
-    case 16: return launch_mma<16, 64>(a, st);
-    case 64: return launch_mma<64, 64>(a, st);
-    case 128: return launch_mma<128, 32>(a, st);
-    case 256: return launch_fma<__nv_bfloat16, 256, 32, 32, 32>(a, st);
-    default: return -1;
-  }
-}
-
 }  // namespace
 
-// Returns 0, a cudaError_t of a launch, or -1 (head dim). dtype: 0 = float32,
-// 1 = bfloat16. Strides are in elements; the last dim of every tensor is
+// Returns 0, a cudaError_t of a launch, 1000 + a CUresult (tensor map), -1
+// (head dim) or -4 (the route does not take this dtype, head dim or
+// delta_from_out). dtype: 0 = float32, 1 = bfloat16. route: 0 = fp32 FMAs
+// (float32 at any head dim, bfloat16 at D = 256), 1 = `mma.sync` (bfloat16,
+// D = 16), 2 = `wgmma` + TMA (bfloat16, D = 64 or 128,
+// flash_attention_bwd_sm90.cu); the wrapper picks it from the dtype and the
+// head dim alone. Strides are in elements; the last dim of every tensor is
 // contiguous and every row start is 16-byte aligned; lse and delta are
-// contiguous (B, H, Sq) fp32. window <= 0: no window. Two kernels are launched
-// on `stream`: dq, then dk/dv.
+// contiguous (B, H, Sq) fp32. delta_from_out (the `wgmma` route only): delta
+// is written, as rowsum(dout * out), by the dq kernel before it is used.
+// window <= 0: no window. Two kernels are launched on `stream`: dq, then dk/dv.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
-    const float* delta, void* dq, void* dk, void* dv,
+    float* delta, void* dq, void* dk, void* dv, const void* out,
     int B, int H, int KV, int Sq, int S, int D,
     i64 q_sb, i64 q_sh, i64 q_ss, i64 k_sb, i64 k_sh, i64 k_ss,
     i64 v_sb, i64 v_sh, i64 v_ss, i64 do_sb, i64 do_sh, i64 do_ss,
     i64 dq_sb, i64 dq_sh, i64 dq_ss, i64 dk_sb, i64 dk_sh, i64 dk_ss,
-    i64 dv_sb, i64 dv_sh, i64 dv_ss,
+    i64 dv_sb, i64 dv_sh, i64 dv_ss, i64 o_sb, i64 o_sh, i64 o_ss,
     float scale, float softcap, int causal, int window, int q_offset,
-    int dtype, void* stream) {
-  BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, S, D,
+    int delta_from_out, int dtype, int route, void* stream) {
+  BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, out, B, H, KV, Sq, S, D,
             q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss,
-            dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss,
-            scale, softcap, causal, window, q_offset};
+            dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, o_sb, o_sh, o_ss,
+            scale, softcap, causal, window, q_offset, delta_from_out};
   cudaStream_t st = (cudaStream_t)stream;
-  return dtype == 1 ? launch_mma_d(a, st) : launch_fma_d<float>(a, st);
+  if (delta_from_out && route != 2) return -4;
+  switch (route) {
+    case 0:
+      if (dtype == 0) return launch_fma_d<float>(a, st);
+      return D == 256 ? launch_fma<__nv_bfloat16, 256, 32, 32, 32>(a, st) : -4;
+    case 1: return dtype == 1 && D == 16 ? launch_mma(a, st) : -4;
+    case 2: return dtype == 1 && (D == 64 || D == 128) ? flash_attention_bwd_sm90(a, st) : -4;
+    default: return -4;
+  }
 }

@@ -45,21 +45,18 @@
 // consumer runs S, softmax and P V in turn and the two consumers overlap each
 // other.
 // A probability of a masked column is exactly 0 (not exp(0)), as in the other
-// two routes.
-#include <cuda.h>
-
-#include <cstdint>
-
+// two routes; a row that sees no column gives what the TPU kernel gives
+// (blind_row in flash_attention.cuh).
 #include "flash_attention.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int kBM = 128;       // q rows an item (two consumer warpgroups of 64)
 constexpr int kBN = 128;       // K/V rows a stage
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kRow = 128;      // bytes of one swizzled row: 64 bf16 columns
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Layout {
@@ -82,182 +79,6 @@ struct Sm90Args {
   float scale, softcap;
   int causal, window, q_offset;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers, named barriers and TMA
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-// Waits until the phase of parity `parity` has completed. A barrier that
-// never completes (a fault of the kernel) traps after ~2^26 tries, which the
-// next synchronisation reports as a launch failure, instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  int tries = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (++tries == (1 << 26)) __trap();
-  } while (!done);
-}
-// Barrier `id` (1 + consumer) over the 128 threads of one consumer warpgroup.
-__device__ __forceinline__ void wg_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
-}
-
-// Shared -> global through a tensor map; rows past the tensor's end are not
-// written. Completion is tracked per thread with bulk groups.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// Waits until this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-// Shared-memory matrix descriptor, 128-byte swizzle. K-major (Q, K): 8-row
-// groups 1024 bytes apart (SBO), the leading offset unused. MN-major (V):
-// 64-column blocks `lbo` bytes apart, 8-row groups of K 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// D(64 x 128) (+)= A(64 x 16, shared) B(16 x 128, shared), both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D(64 x 128) += A(64 x 16, registers) B(16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// D(64 x 64) += A(64 x 16, registers) B(16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n128(o, a, db, 1);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n64(o, a, db, 1);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // lo -> low half
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
-}
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---------------------------------------------------------------------------
 // One work item: a 128-row q tile of one (batch, q head) and the K/V tiles it
@@ -282,7 +103,8 @@ __device__ __forceinline__ Item item_of(int w, const Sm90Args& a) {
   const int row_min = a.q_offset + it.r0;
   const int row_max = row_min + rows_here - 1;
   const int hi = a.causal ? min(a.S, row_max + 1) : a.S;
-  const int lo = a.window > 0 ? max(0, row_min - a.window + 1) : 0;
+  const int lo = a.window > 0 && !blind_row(row_max, a.S, a.window)
+                     ? max(0, row_min - a.window + 1) : 0;
   it.jt0 = lo / kBN;
   it.n_tiles = max(0, (hi + kBN - 1) / kBN - it.jt0);
   return it;
@@ -292,12 +114,6 @@ __device__ __forceinline__ Item item_of(int w, const Sm90Args& a) {
 // that every block gets a like mix of heavy and light ones.
 __device__ __forceinline__ int item_at(int k, int P, int j) {
   return k * P + ((k & 1) ? P - 1 - j : j);
-}
-
-// byte offset of (row, 8-column chunk j) in a consumer's 64-row buffer:
-// 64-column boxes of 64 rows, 128-byte rows, 16-byte chunks XOR-ed by row % 8
-__device__ __forceinline__ uint32_t swz(int row, int j) {
-  return (uint32_t)((j >> 3) * 64 * kRow + row * kRow + (((j & 7) ^ (row & 7)) << 4));
 }
 
 // ---------------------------------------------------------------------------
@@ -326,7 +142,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -426,7 +242,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               bool ok = col < a.S;
               if (a.causal) ok = ok && col <= row;
               if (a.window > 0) ok = ok && col > row - a.window;
-              if (!ok) sc[4 * j + e] = NEG_INF;
+              if (!ok) sc[4 * j + e] = blind_row(row, a.S, a.window) && col < a.S ? 0.f : NEG_INF;
             }
         }
         // online softmax: the 4 threads of a quad share rows g and g + 8
@@ -486,7 +302,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kk = 0; kk < kBN / 16; ++kk) {
           const uint32_t pk[4] = {__float_as_uint(sc[4 * kk]), __float_as_uint(sc[4 * kk + 1]),
                                   __float_as_uint(sc[4 * kk + 2]), __float_as_uint(sc[4 * kk + 3])};
-          wgmma_pv<D>(o, pk, desc_sw128(v_addr + kk * 16 * kRow, kBN * kRow));
+          wgmma_rs_d<D>(o, pk, desc_sw128(v_addr + kk * 16 * kRow, kBN * kRow));
         }
         wgmma_commit();
         wgmma_wait0();
@@ -503,7 +319,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         const float den = fmaxf(sum, 1e-30f);
         inv[r] = 1.f / den;
-        lse_r[r] = (m[r] == NEG_INF ? NEG_INF : m[r] * kLn2) + logf(den);
+        lse_r[r] = (m[r] == NEG_INF || blind_row(row_a + 8 * r, a.S, a.window)
+                        ? NEG_INF : m[r] * kLn2) + logf(den);
       }
       if (tw == 0) bulk_wait_read();                  // the last item's store has read stg
       wg_sync(1 + cw);
@@ -512,10 +329,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = 16 * warp + g + 8 * r;
-          sts32(stg + swz(row, j) + 4 * t4,
+          sts32(stg + swz(row, j, 64) + 4 * t4,
                 pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]));
         }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to TMA
+      fence_async_smem();                             // visible to TMA
       wg_sync(1 + cw);
       if (tw == 0) {                                  // rows past Sq are not written
 #pragma unroll
@@ -531,51 +348,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
     }
-    if (tw == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");   // all stored
+    if (tw == 0) bulk_wait_all();                     // all stored
   }
-}
-
-// ---------------------------------------------------------------------------
-// host side: tensor maps through the driver's entry point (the library is
-// linked without -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-d map over (D, rows, heads, batch) of bf16 with element strides
-// (1, s_row, s_head, s_batch), boxes of 64 columns x box_rows rows.
-int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads, int batch,
-             i64 s_row, i64 s_head, i64 s_batch, int box_rows) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return 1000 + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_row * 2, (cuuint64_t)s_head * 2,
-                                 (cuuint64_t)s_batch * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
 template <int D>

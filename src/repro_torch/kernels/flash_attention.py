@@ -59,6 +59,17 @@ def route(dtype: torch.dtype, d: int) -> str:
     return "fma"
 
 
+def blind_rows(sq: int, s: int, window: Optional[int], q_offset: int = 0,
+               device=None) -> torch.Tensor:
+    """(Sq,) bool: the query rows that see no column, whatever the causal
+    flag: a window hides every one of the S columns (``row - window >= S -
+    1``). The TPU kernel gives such a row the mean of V and ``lse = NEG_INF +
+    log S``; so do :func:`flash_attention_plain` and every CUDA route."""
+    if window is None:
+        return torch.zeros(sq, dtype=torch.bool, device=device)
+    return q_offset + torch.arange(sq, device=device) - window >= s - 1
+
+
 def _resolve_scale(scale: Optional[float], d: int) -> float:
     return 1.0 / math.sqrt(d) if scale is None else float(scale)
 

@@ -49,8 +49,9 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, dout):
         qt, kt, vt, out, lse = ctx.saved_tensors
         window, softcap, scale = ctx.opts
-        delta = (dout.float() * out.float()).sum(dim=-1)
-        dq, dk, dv = fab_k.flash_attention_bwd(qt, kt, vt, dout, lse, delta,
+        # delta = rowsum(dout * out) is computed inside K5 (its dq kernel on
+        # the wgmma route), not in a separate pass
+        dq, dk, dv = fab_k.flash_attention_bwd(qt, kt, vt, dout, lse, out=out,
                                                causal=True, window=window,
                                                softcap=softcap, scale=scale)
         return dq, dk, dv, None, None, None
@@ -106,6 +107,24 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _FORCE_REF:
         return ref.rwkv6_wkv_ref(r, k, v, w, u)
     return wkv_k.rwkv6_wkv(r, k, v, w, u)
+
+
+def rwkv6_wkv_model(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor):
+    """Model layout r/k (B,S,H,Dk), v (B,S,H,Dv) in the model's dtype, w
+    (B,S,H,Dk) fp32, u (H,Dk) fp32 -> (y (B,S,H,Dv) fp32, s_final (B,H,Dk,Dv)
+    fp32). The kernel reads the tensors in place: no fold copy."""
+    _no_grad(r, "rwkv6_wkv_model")
+    if _FORCE_REF:
+        b, seq, nh, dk = r.shape
+
+        def fold(t):
+            return t.float().transpose(1, 2).reshape(b * nh, seq, t.shape[-1])
+        y, s = ref.rwkv6_wkv_ref(fold(r), fold(k), fold(v), fold(w),
+                                 u.float().repeat(b, 1))
+        return (y.reshape(b, nh, seq, -1).transpose(1, 2),
+                s.reshape(b, nh, dk, -1))
+    return wkv_k.rwkv6_wkv_model(r, k, v, w, u)
 
 
 def ssm_scan(u: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,

@@ -203,14 +203,10 @@ def rwkv_time_mix(cfg: ModelConfig, p: ParamTree, x: torch.Tensor,
     if use_kernel and seq > 1:
         from repro_torch.kernels import ops as kops
 
-        def fold(t):   # one copy: fp32 cast and (B,S,H,D) -> (B*H,S,D)
-            return t.transpose(1, 2).to(
-                torch.float32, memory_format=torch.contiguous_format
-            ).reshape(b * nh, seq, hd)
-        u_bh = u[None].expand(b, nh, hd).reshape(b * nh, hd)
-        y_bh, s_bh = kops.rwkv6_wkv(fold(r), fold(k), fold(v), fold(w), u_bh)
-        y = y_bh.reshape(b, nh, seq, hd).transpose(1, 2).reshape(b, seq, d)
-        s_final = s_bh.reshape(b, nh, hd, hd)
+        # the kernel reads r, k, v (model dtype) and w (fp32) in place and
+        # writes y in fp32 as (B, S, H, Dv): no fold or unfold copy
+        y4, s_final = kops.rwkv6_wkv_model(r, k, v, w, u)
+        y = y4.reshape(b, seq, d)
     else:
         s = state.wkv.float()
         rf, kf, vf = r.float(), k.float(), v.float()

@@ -263,3 +263,140 @@ def test_jamba_smoke_kernels_on_vs_off(device):
     assert out[True][2] == 7 and out[False][2] == 0
     for a_, b_ in zip(out[True][:2], out[False][:2]):
         torch.testing.assert_close(a_, b_, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("dtype,d,rt", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 256, "mma"), (torch.float32, 64, "fma"), (torch.float32, 128, "fma")])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non-causal"])
+def test_flash_row_that_sees_no_column_on_every_route(device, dtype, d, rt, causal):
+    """Rows past S - 1 + window see no column: out is the mean of V and lse
+    = -1e30 + log S, as in the plain version and the TPU kernel; the rows
+    beside them are unchanged."""
+    b, h, kv, sq, s, window, q_offset = 2, 6, 2, 64, 100, 16, 100
+    gen = torch.Generator(device=device).manual_seed(9)
+    q, k, v = (torch.randn((b, t, n, d), generator=gen, device=device)
+               .to(dtype).transpose(1, 2) for n, t in ((h, sq), (kv, s), (kv, s)))
+    assert fa_k.route(dtype, d) == rt
+    before = dict(fa_k.launches_by_route)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, return_lse=True)
+    out, lse = fa_k.flash_attention(q, k, v, **kw)
+    assert fa_k.launches_by_route[rt] == before[rt] + 1
+    want, want_lse = fa_k.flash_attention_plain(q, k, v, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    blind = fa_k.blind_rows(sq, s, window, q_offset, device=device)
+    assert blind.any() and not blind.all()
+    assert (lse[:, :, blind] == fa_k.NEG_INF).all()
+    mean_v = v.float().mean(dim=2).repeat_interleave(h // kv, dim=1)
+    torch.testing.assert_close(out[:, :, blind].float(),
+                               mean_v[:, :, None, :].expand(-1, -1, int(blind.sum()), -1),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("contiguous", [False, True], ids=["strided", "contiguous"])
+@pytest.mark.parametrize("b,h,kv,sq,s,d,window,softcap,q_offset,causal", [
+    (2, 24, 8, 512, 512, 128, None, 0.0, 0, True),    # the training shape
+    (1, 8, 1, 200, 200, 64, None, 0.0, 0, True),      # ragged, G 8
+    (2, 6, 2, 200, 200, 128, None, 0.0, 0, True),     # ragged, G 3
+    (2, 6, 2, 256, 256, 64, 64, 30.0, 0, True),       # window with soft cap
+    (2, 6, 2, 256, 256, 128, 64, 30.0, 0, True),
+    (2, 4, 4, 90, 190, 128, 70, 0.0, 100, True),      # q_offset with window, G 1
+    (1, 6, 2, 100, 300, 128, None, 0.0, 0, False),    # non-causal
+    (2, 6, 2, 64, 200, 128, 32, 0.0, 220, True)])     # rows that see no column
+def test_flash_bwd_wgmma_route_vs_plain(device, contiguous, b, h, kv, sq, s, d, window,
+                                        softcap, q_offset, causal):
+    """bf16 at D 64 / 128 runs on the wgmma + TMA kernels, on the model's
+    strided views and on contiguous tensors, with delta given and with delta
+    computed inside from the forward's output."""
+    from repro_torch.kernels import flash_attention_bwd as fab_k
+    gen = torch.Generator(device=device).manual_seed(10)
+    bf = torch.bfloat16
+    if contiguous:
+        q, dout = (torch.randn((b, h, sq, d), generator=gen, device=device).to(bf)
+                   for _ in range(2))
+        k, v = (torch.randn((b, kv, s, d), generator=gen, device=device).to(bf)
+                for _ in range(2))
+    else:
+        q, dout = (torch.randn((b, sq, h, d), generator=gen, device=device).to(bf)
+                   .transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn((b, s, kv, d), generator=gen, device=device).to(bf)
+                .transpose(1, 2) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    out, lse = fa_k.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = fab_k.delta_of(dout, out)
+    assert fab_k.route(bf, d) == "wgmma"
+    before = dict(fab_k.launches_by_route)
+    given = fab_k.flash_attention_bwd(q, k, v, dout, lse, delta, **kw)
+    inside = fab_k.flash_attention_bwd(q, k, v, dout, lse, out=out, **kw)
+    assert fab_k.launches_by_route["wgmma"] == before["wgmma"] + 2
+    assert sum(fab_k.launches_by_route.values()) == sum(before.values()) + 2
+    want = fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta, **kw)
+    tol = BWD_TOL[bf]
+    for got in (given, inside):
+        for g_, w_, ref_in in zip(got, want, (q, k, v)):
+            assert g_.dtype == bf and g_.shape == ref_in.shape
+            atol = tol * min(1.0, w_.float().abs().max().item())
+            torch.testing.assert_close(g_.float(), w_.float(), atol=atol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,d,rt,from_out", [
+    (torch.bfloat16, 128, "fma", 0), (torch.bfloat16, 128, "mma", 0),
+    (torch.bfloat16, 64, "mma", 0), (torch.float32, 128, "wgmma", 0),
+    (torch.float32, 16, "mma", 0), (torch.bfloat16, 16, "wgmma", 0),
+    (torch.bfloat16, 256, "wgmma", 0), (torch.bfloat16, 64, "fma", 0),
+    (torch.bfloat16, 16, "mma", 1), (torch.float32, 64, "fma", 1)])
+def test_flash_bwd_entry_point_refuses_a_route_off_its_dtype_or_head_dim(device, dtype, d,
+                                                                         rt, from_out):
+    """The C entry point returns -4, and launches nothing, for a route that
+    does not take the dtype or the head dim, or for delta from out off the
+    wgmma route (:func:`route` never asks)."""
+    from repro_torch.kernels import flash_attention_bwd as fab_k
+    q = torch.zeros((1, 2, 8, d), dtype=dtype, device=device)
+    g = torch.empty_like(q)
+    lse = torch.zeros((1, 2, 8), dtype=torch.float32, device=device)
+    st = q.stride()[:3]
+    err = fab_k._kernel_fn()(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(), lse.data_ptr(), lse.data_ptr(),
+        g.data_ptr(), g.data_ptr(), g.data_ptr(), q.data_ptr(), 1, 2, 2, 8, 8, d,
+        *st, *st, *st, *st, *st, *st, *st, *st, d ** -0.5, 0.0, 1, 0, 0, from_out,
+        int(dtype == torch.bfloat16), fab_k.ROUTES.index(rt),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == -4
+
+
+@pytest.mark.parametrize("view", ["dense", "sliced", "transposed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dk,dv", [(8, 512, 32, 64, 64), (2, 200, 4, 64, 64),
+                                         (2, 1, 4, 64, 64), (2, 70, 3, 128, 96),
+                                         (2, 37, 3, 24, 40)])
+def test_rwkv6_wkv_model_kernel_vs_plain(device, view, dtype, b, s, h, dk, dv):
+    """The model-layout entry on (B, S, H, D) views (r, k, v in ``dtype``, w and
+    u fp32) against its plain version, and bit for bit against the folded
+    entry on fp32 copies of the same values."""
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def make(d, dt, scale=1.0, squash=False):
+        shape = {"dense": (b, s, h, d), "sliced": (b, s, h, d + 8),
+                 "transposed": (b, h, s, d)}[view]
+        x = torch.randn(shape, generator=gen, device=device) * scale
+        x = (torch.sigmoid(x) if squash else x).to(dt)
+        return x[..., :d] if view == "sliced" else (x.transpose(1, 2) if view == "transposed" else x)
+    r, k, v = make(dk, dtype), make(dk, dtype, 0.3), make(dv, dtype)
+    w = make(dk, torch.float32, squash=True)
+    u = torch.randn((h, dk), generator=gen, device=device) * 0.1
+    before = wkv_k.launches
+    y, st = wkv_k.rwkv6_wkv_model(r, k, v, w, u)
+    assert wkv_k.launches == before + 1
+    assert y.shape == (b, s, h, dv) and y.dtype == torch.float32 and st.shape == (b, h, dk, dv)
+    want_y, want_st = wkv_k.rwkv6_wkv_model_plain(r, k, v, w, u)
+    tol = 4 * TOL[dtype]
+    torch.testing.assert_close(y, want_y, atol=tol, rtol=tol)
+    torch.testing.assert_close(st, want_st, atol=tol, rtol=tol)
+
+    def fold(t):
+        return t.float().transpose(1, 2).reshape(b * h, s, t.shape[-1]).contiguous()
+    fy, fst = wkv_k.rwkv6_wkv(fold(r), fold(k), fold(v), fold(w), u.repeat(b, 1))
+    assert torch.equal(fy.reshape(b, h, s, dv).transpose(1, 2), y)
+    assert torch.equal(fst.reshape(b, h, dk, dv), st)

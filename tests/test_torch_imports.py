@@ -134,6 +134,7 @@ def test_kernel_build_needs_the_compiler():
     assert [p.name for p in _build.sources()] == ["decode_attention.cu",
                                                   "flash_attention.cu",
                                                   "flash_attention_bwd.cu",
+                                                  "flash_attention_bwd_sm90.cu",
                                                   "flash_attention_sm90.cu",
                                                   "rwkv6_wkv.cu", "ssm_scan.cu"]
     assert _build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")

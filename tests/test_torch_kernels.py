@@ -365,3 +365,126 @@ def test_ops_ssm_scan(bf16):
         assert y.dtype == t_in[0].dtype
         _close4(y, want[0], bf16)
         _close4(h, want[1], bf16)
+
+
+def _wkv_model_inputs(seed, b, s, h, dk, dv, view):
+    """The model-layout entry's inputs as numpy (B, S, H, D) arrays, drawn as
+    :func:`_wkv_inputs` draws them, and a function that hands one to the
+    port as the view the case names: a dense tensor, a column slice of a
+    wider one, or a transpose of a (B, H, S, D) one."""
+    r, k, v, w, u = _wkv_inputs(seed, b * h, s, dk, dv)
+    bshd = [x.reshape(b, h, s, -1).transpose(0, 2, 1, 3) for x in (r, k, v, w)]
+
+    def as_view(x, dtype):
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+        if view == "sliced":
+            wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 8, dtype=dtype)
+            wide[..., :t.shape[-1]] = t
+            return wide[..., :t.shape[-1]]
+        if view == "transposed":
+            return t.transpose(1, 2).contiguous().transpose(1, 2)
+        return t
+    return bshd, torch.from_numpy(u[:h].copy()), as_view
+
+
+@pytest.mark.parametrize("view", ["dense", "sliced", "transposed"])
+@pytest.mark.parametrize("rkv", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,h,dk,dv", [(2, 37, 3, 16, 24), (1, 1, 2, 8, 8),
+                                         (2, 64, 4, 32, 32)])
+def test_rwkv6_wkv_model_plain_equals_folded_bit_for_bit(b, s, h, dk, dv, rkv, view):
+    """The model-layout entry's plain version (r, k, v in the model's dtype,
+    w and u fp32, read through the (B, S, H, D) layout) equals the folded
+    call on fp32 copies of the same values bit for bit: bf16 -> fp32 is
+    exact and the loop sums in the same order."""
+    (r, k, v, w), u, as_view = _wkv_model_inputs(21, b, s, h, dk, dv, view)
+    tr, tk, tv = (as_view(x, rkv) for x in (r, k, v))
+    tw = as_view(w, torch.float32)
+    y, st = wkv_k.rwkv6_wkv_model(tr, tk, tv, tw, u)
+    assert y.shape == (b, s, h, dv) and y.dtype == torch.float32
+    assert st.shape == (b, h, dk, dv) and st.dtype == torch.float32
+
+    def fold(t):
+        return t.float().transpose(1, 2).reshape(b * h, s, t.shape[-1]).contiguous()
+    fy, fst = wkv_k.rwkv6_wkv(fold(tr), fold(tk), fold(tv), fold(tw), u.repeat(b, 1))
+    assert torch.equal(y, fy.reshape(b, h, s, dv).transpose(1, 2))
+    assert torch.equal(st, fst.reshape(b, h, dk, dv))
+    assert wkv_k.launches == 0                     # the CPU never launches
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_ops_rwkv6_wkv_model_matches_jax_oracle(bf16):
+    """``ops.rwkv6_wkv_model`` with and without ``force_ref`` against the
+    JAX oracle on the folded values."""
+    b, s, h, dk, dv = 2, 24, 3, 16, 16
+    (r, k, v, w), u, as_view = _wkv_model_inputs(23, b, s, h, dk, dv, "dense")
+    u = u.numpy()
+    rkv = torch.bfloat16 if bf16 else torch.float32
+    t_in = [as_view(x, rkv) for x in (r, k, v)] + [as_view(w, torch.float32),
+                                                    torch.from_numpy(u)]
+
+    def fold(x):
+        return x.transpose(0, 2, 1, 3).reshape(b * h, s, -1)
+    j_in = ([to_jax(fold(x), bf16) for x in (r, k, v)] + [to_jax(fold(w))]
+            + [to_jax(np.tile(u, (b, 1)))])
+    want_y, want_st = jref.rwkv6_wkv_ref(*j_in)
+    want_y = np.asarray(want_y, np.float32).reshape(b, h, s, dv).transpose(0, 2, 1, 3)
+    want_st = np.asarray(want_st, np.float32).reshape(b, h, dk, dv)
+    for force in (False, True):
+        ops.force_ref(force)
+        try:
+            y, st = ops.rwkv6_wkv_model(*t_in)
+        finally:
+            ops.force_ref(False)
+        _close4(y, want_y, bf16)
+        _close4(st, want_st, bf16)
+
+
+def test_rwkv6_wkv_model_rejects_what_the_kernel_does_not_take():
+    b, s, h, d = 1, 4, 2, 8
+    r = torch.zeros(b, s, h, d, dtype=torch.bfloat16)
+    w, u = torch.zeros(b, s, h, d), torch.zeros(h, d)
+    wkv_k.rwkv6_wkv_model(r, r, r, w, u)                     # the rule: bf16 r/k/v, fp32 w/u
+    cols = torch.zeros(b, s, h, 2 * d, dtype=torch.bfloat16)[..., ::2]   # last dim strided
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_k.rwkv6_wkv_model(cols, r, r, w, u)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_k.rwkv6_wkv_model(r, r, r, torch.zeros(b, s, h, 2 * d)[..., ::2], u)
+    with pytest.raises(TypeError, match="share a dtype"):
+        wkv_k.rwkv6_wkv_model(r, r.float(), r, w, u)         # k off r's dtype
+    with pytest.raises(TypeError, match="float32"):
+        wkv_k.rwkv6_wkv_model(r, r, r, w.bfloat16(), u)      # w must be fp32
+    with pytest.raises(TypeError, match="float32"):
+        wkv_k.rwkv6_wkv_model(r, r, r, w, u.bfloat16())      # u must be fp32
+    with pytest.raises(TypeError, match="share a dtype"):
+        wkv_k.rwkv6_wkv_model(r.half(), r.half(), r.half(), w, u)
+    with pytest.raises(ValueError, match="shapes"):
+        wkv_k.rwkv6_wkv_model(r, r, r, w, torch.zeros(h + 1, d))
+    with pytest.raises(ValueError, match=r"\(B, S, H, D\)"):
+        wkv_k.rwkv6_wkv_model(r[0], r[0], r[0], w[0], u)
+    assert wkv_k.launches == 0
+
+
+def test_rwkv_time_mix_kernel_path_makes_no_fold_copy(monkeypatch):
+    """``rwkv_time_mix(use_kernel=True)`` hands the model-layout entry the
+    (B, S, H, D) projections as they are and reshapes y without a copy."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, ssm
+    cfg = get_smoke_config("rwkv6-1.6b").scaled(dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    sub = {kk: vv[0] for kk, vv in params["layers"]["sub0"]["rwkv"].items()}
+    seen = {}
+    real = wkv_k.rwkv6_wkv_model
+
+    def spy(r, k, v, w, u):
+        seen.update(shapes=[tuple(t.shape) for t in (r, k, v, w)],
+                    contiguous=[t.is_contiguous() for t in (r, k, v, w)],
+                    dtypes=(r.dtype, w.dtype, u.dtype))
+        return real(r, k, v, w, u)
+    monkeypatch.setattr(wkv_k, "rwkv6_wkv_model", spy)
+    d, hd = cfg.d_model, cfg.ssm.wkv_head_dim
+    x = torch.randn(2, 6, d, generator=torch.Generator().manual_seed(0))
+    state = ssm.init_rwkv_state(cfg, 2, dtype=torch.float32, device="cpu")
+    ssm.rwkv_time_mix(cfg, sub, x, state, use_kernel=True)
+    assert seen["shapes"][0] == (2, 6, d // hd, hd)
+    assert all(seen["contiguous"])
+    assert seen["dtypes"] == (torch.float32, torch.float32, torch.float32)
