@@ -188,34 +188,42 @@ class Timer:
 
 
 def reset_counts():
-    """Every kernel's launch count, and K1's and K5's counts by route, to 0."""
+    """Every kernel's launch count, and K1's, K3's and K5's counts by route,
+    to 0."""
     for mod in KERNELS.values():
         mod.launches = 0
-    fa_k.launches_by_route = dict.fromkeys(fa_k.ROUTES, 0)
-    fab_k.launches_by_route = dict.fromkeys(fab_k.ROUTES, 0)
+    for mod in (fa_k, ssm_k, fab_k):
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
 
 
 K1_ROUTES = {}   # path -> K1's launches by route, read right after the path ran
+K3_ROUTES = {}   # the same for K3, on the paths that launched it
 K5_ROUTES = {}   # the same for K5
 
 
-def _assert_wgmma(mod, record, kernel, where, n):
+def _assert_route(mod, record, kernel, where, n, route):
     routes = dict(mod.launches_by_route)
-    assert routes["wgmma"] == n and sum(routes.values()) == n, (
-        f"{where}: {kernel} launches by route {routes}, expected all {n} on wgmma")
+    assert routes[route] == n and sum(routes.values()) == n, (
+        f"{where}: {kernel} launches by route {routes}, expected all {n} on {route}")
     record[where] = routes
 
 
 def assert_k1_wgmma(where, n):
     """Every one of the ``n`` K1 launches counted since the last reset went
     through the ``wgmma`` route."""
-    _assert_wgmma(fa_k, K1_ROUTES, "K1", where, n)
+    _assert_route(fa_k, K1_ROUTES, "K1", where, n, "wgmma")
+
+
+def assert_k3_tma(where, n):
+    """Every one of the ``n`` K3 launches counted since the last reset went
+    through the ``tma`` route."""
+    _assert_route(ssm_k, K3_ROUTES, "K3", where, n, "tma")
 
 
 def assert_k5_wgmma(where, n):
     """Every one of the ``n`` K5 calls counted since the last reset went
     through the ``wgmma`` route."""
-    _assert_wgmma(fab_k, K5_ROUTES, "K5", where, n)
+    _assert_route(fab_k, K5_ROUTES, "K5", where, n, "wgmma")
 
 
 def call_ms(fn, warmup: int = 3, iters: int = 15) -> float:
@@ -734,65 +742,126 @@ def check_wkv(device, timer):
 # K3
 def ssm_cases():
     bf, f32 = torch.bfloat16, torch.float32
-    # name, dtype, b, s, d_in, n
+    # name, dtype, b, s, d_in, n, the route (dtype, d_in, n) must take, and
+    # whether dt * a is drawn to reach about -1000 (dt up to ~50, a down to
+    # ~-20: the polynomial exp's clamp)
     return [
-        ("serving bf16", bf, B, PROMPT, SSM_DIN, SSM_N),
-        ("serving fp32 b2", f32, 2, PROMPT, SSM_DIN, SSM_N),
-        ("smoke bf16", bf, 2, 32, 128, 8),
-        ("smoke fp32", f32, 2, 32, 128, 8),
-        ("ragged s200 fp32", f32, 2, 200, 512, SSM_N),
-        ("ragged s200 bf16", bf, 2, 200, 512, SSM_N),
-        ("d_in 1000 fp32", f32, 2, 64, 1000, SSM_N),
-        ("d_in 1000 bf16", bf, 3, 40, 1000, SSM_N),
-        ("s2 fp32", f32, 4, 2, 384, SSM_N),
-        ("s2 bf16", bf, 4, 2, 384, SSM_N),
-        ("n5 s33 d_in 200 fp32", f32, 2, 33, 200, 5),
-        ("n3 s17 bf16", bf, 1, 17, 130, 3),
+        ("serving bf16", bf, B, PROMPT, SSM_DIN, SSM_N, "tma", False),
+        ("serving fp32 b2", f32, 2, PROMPT, SSM_DIN, SSM_N, "tma", False),
+        ("smoke bf16", bf, 2, 32, 128, 8, "tma", False),
+        ("smoke fp32", f32, 2, 32, 128, 8, "tma", False),
+        ("ragged s200 fp32", f32, 2, 200, 512, SSM_N, "tma", False),
+        ("ragged s200 bf16", bf, 2, 200, 512, SSM_N, "tma", False),
+        ("d_in 1000 fp32", f32, 2, 64, 1000, SSM_N, "tma", False),
+        ("d_in 1000 bf16", bf, 3, 40, 1000, SSM_N, "tma", False),
+        ("s2 fp32", f32, 4, 2, 384, SSM_N, "tma", False),
+        ("s2 bf16", bf, 4, 2, 384, SSM_N, "tma", False),
+        ("s1 n4 bf16", bf, 3, 1, 256, 4, "tma", False),
+        ("n12 d_in 132 s70 fp32", f32, 2, 70, 132, 12, "tma", False),
+        ("n8 d_in 1000 s77 bf16", bf, 2, 77, 1000, 8, "tma", False),
+        ("n5 s33 d_in 200 fp32", f32, 2, 33, 200, 5, "simple", False),
+        ("n3 s17 bf16", bf, 1, 17, 130, 3, "simple", False),
+        ("d_in 130 s50 bf16", bf, 2, 50, 130, SSM_N, "simple", False),
+        ("d_in 130 s50 fp32", f32, 2, 50, 130, SSM_N, "simple", False),
+        ("extreme dt*a bf16", bf, 2, 64, 1024, SSM_N, "tma", True),
+        ("extreme dt*a fp32", f32, 2, 64, 1024, SSM_N, "tma", True),
+        ("extreme dt*a d_in 130 bf16", bf, 2, 40, 130, SSM_N, "simple", True),
+        ("extreme dt*a n5 fp32", f32, 2, 40, 200, 5, "simple", True),
     ]
 
 
-def _ssm_inputs(gen, b, s, d_in, n, dt_, device):
+def _ssm_inputs(gen, b, s, d_in, n, dt_, device, extreme=False):
     """As the reference's kernel test draws them: dt = softplus(N(0,1)/2),
     a = -exp(N(0,1) * 0.3); u and dt in the working dtype, B, C, a and
-    d_skip in fp32 (as the model hands them over)."""
+    d_skip in fp32 (as the model hands them over). ``extreme``: dt uniform
+    in [0, 50) and a in (-20, 0], so dt * a * log2(e) reaches about -1400."""
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=device)
     u = rn(b, s, d_in).to(dt_)
-    dt = F.softplus(rn(b, s, d_in) * 0.5).to(dt_)
+    if extreme:
+        dt = (torch.rand((b, s, d_in), generator=gen, device=device) * 50).to(dt_)
+        a = -torch.rand((d_in, n), generator=gen, device=device) * 20
+    else:
+        dt = F.softplus(rn(b, s, d_in) * 0.5).to(dt_)
+        a = -torch.exp(rn(d_in, n) * 0.3)
     bm, cm = rn(b, s, n), rn(b, s, n)
-    a = -torch.exp(rn(d_in, n) * 0.3)
     d_skip = 1.0 + 0.1 * rn(d_in)
     return u, dt, bm, cm, a, d_skip
+
+
+# per state element and step, besides its exp: dt * a, du * B, the h FMA
+# and the y FMA on the FMA pipe; an exp on that pipe instead of the
+# special-function unit costs sm90::ex2_poly's 10 instructions
+SSM_FMA_OPS, SSM_POLY_OPS = 4, 10
+
+
+def _simple_route_call(ins):
+    """A call of the simple route's kernel on ``ins`` through its C entry
+    (the wrapper sends the serving shape to the tma route); its output is
+    held against the plain version once."""
+    u, dt, bm, cm, a, d_skip = ins
+    b, s, d_in = u.shape
+    y = torch.empty_like(u)
+    h = torch.empty((b, d_in, a.shape[1]), dtype=torch.float32, device=u.device)
+
+    def call():
+        err = ssm_k._kernel_fn("simple")(
+            u.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(), a.data_ptr(),
+            d_skip.data_ptr(), y.data_ptr(), h.data_ptr(), b, s, d_in, a.shape[1],
+            1 if u.dtype == torch.bfloat16 else 0, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"simple route launch failed (code {err})"
+
+    call()
+    ref_y, ref_h = ssm_k.ssm_scan_plain(*ins)
+    _check("ssm_scan[simple route] y", y, ref_y, WKV_TOL[u.dtype])
+    _check("ssm_scan[simple route] h_final", h, ref_h, WKV_TOL[u.dtype])
+    return call
 
 
 def check_ssm_scan(device, timer):
     gen = torch.Generator(device=device).manual_seed(4)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    for (name, dt_, b, s, d_in, n) in ssm_cases():
-        ins = _ssm_inputs(gen, b, s, d_in, n, dt_, device)
+    for (name, dt_, b, s, d_in, n, want_rt, extreme) in ssm_cases():
+        ins = _ssm_inputs(gen, b, s, d_in, n, dt_, device, extreme)
+        rt = ssm_k.route(dt_, d_in, n)
+        assert rt == want_rt, (name, rt)
+        before = ssm_k.launches_by_route[rt]
         y, h = ssm_k.ssm_scan(*ins)
         torch.cuda.synchronize()
+        assert ssm_k.launches_by_route[rt] == before + 1, (name, rt)
         ref_y, ref_h = ssm_k.ssm_scan_plain(*ins)
         assert y.shape == (b, s, d_in) and y.dtype == dt_
         assert h.shape == (b, d_in, n) and h.dtype == torch.float32
         e1 = _check(f"ssm_scan[{name}] y", y, ref_y, WKV_TOL[dt_])
         e2 = _check(f"ssm_scan[{name}] h_final", h, ref_h, WKV_TOL[dt_])
         worst[dt_] = max(worst[dt_], e1, e2)
-        print(f"  ssm_scan {name:29s} y err {e1:.3e}  h_final err {e2:.3e}")
+        print(f"  ssm_scan {name:29s} route {rt:6s} y err {e1:.3e}  h_final err {e2:.3e}")
         del ins, y, h, ref_y, ref_h
 
     # timing at the serving shape (jamba prefill: batch 8 x 512, bf16 u/dt)
     dt_ = torch.bfloat16
+    assert ssm_k.route(dt_, SSM_DIN, SSM_N) == "tma"
     ins = _ssm_inputs(gen, B, PROMPT, SSM_DIN, SSM_N, dt_, device)
     y, h = ssm_k.ssm_scan(*ins)
     ref_y, ref_h = ssm_k.ssm_scan_plain(*ins)
     err = max(_check("ssm_scan[timed] y", y, ref_y, WKV_TOL[dt_]),
               _check("ssm_scan[timed] h_final", h, ref_h, WKV_TOL[dt_]))
     del y, h, ref_y, ref_h
-    ms = timer(lambda: ssm_k.ssm_scan(*ins))
+    k3 = lambda: ssm_k.ssm_scan(*ins)  # noqa: E731
+    reset_counts()
+    ms = timer(k3)
+    assert_k3_tma("ssm_scan[timed]", ssm_k.launches)
+    k_call_ms = call_ms(k3)
+    k_device_ms, k_kernels = device_ms(k3, label="K3")
     plain_ms = timer(lambda: ssm_k.ssm_scan_plain(*ins), warmup=1, iters=5)
     f32_ins = [t.float() for t in ins]
     fp32_ms = timer(lambda: ssm_k.ssm_scan(*f32_ins))
+    # the parent design, the simple route's kernel (csrc/ssm_scan.cu), on the
+    # same inputs through its own C entry: the yardstick of the redesign
+    simple = _simple_route_call(ins)
+    simple_ms = timer(simple)
+    simple_device_ms, _ = device_ms(simple, label="K3 simple route")
+    simple_fp32_ms = timer(_simple_route_call(f32_ins))
     del f32_ins
     es = ins[0].element_size()
     steps = B * PROMPT * SSM_DIN * SSM_N            # state-element steps
@@ -803,17 +872,29 @@ def check_ssm_scan(device, timer):
     # per state element and step: dt * a, exp, da * h + du * B (2), h * C
     flops = 5 * steps
     t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
-    # one exp a state-element step on the special-function units: 16 a clock
-    # on each SM, at the card's largest SM clock
+    # the exps alone on the special-function units (16 a clock an SM), and
+    # the best split of them between those units and the FMA pipe (128 fp32
+    # lanes a clock an SM) that also carries the SSM_FMA_OPS: a share p on
+    # the polynomial balances (ops + poly p) / 128 = (1 - p) / 16; both at
+    # the card's largest SM clock
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    sfu_ms = steps / (16 * sms * max_sm_clock_hz()) * 1e3
+    per_sm_clock = steps / (sms * max_sm_clock_hz()) * 1e3
+    sfu_ms = per_sm_clock / 16
+    p = (128 - 16 * SSM_FMA_OPS) / (128 + 16 * SSM_POLY_OPS)
+    mixed_ms = per_sm_clock * (1 - p) / 16
     return {
         "name": "ssm_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan_sm90.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:61",
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
-        "library_ms": None, "fp32_path_ms": fp32_ms, "sfu_exp_bound_ms": sfu_ms,
+        "library_ms": None, "kernel_route": "tma", "call_ms": k_call_ms,
+        "device_ms": k_device_ms, "device_kernels_per_call": k_kernels,
+        "fp32_path_ms": fp32_ms, "simple_route_ms": simple_ms,
+        "simple_route_device_ms": simple_device_ms, "simple_route_fp32_ms": simple_fp32_ms,
+        "sfu_exp_bound_ms": sfu_ms,
+        "mixed_pipe_bound_ms": mixed_ms, "mixed_pipe_poly_share": p,
+        "simple_route_source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "shape": f"u/dt({B},{PROMPT},{SSM_DIN}) bf16, B/C({B},{PROMPT},{SSM_N}) fp32",
         "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
         "max_abs_err_all_bf16": worst[torch.bfloat16],
@@ -1026,6 +1107,8 @@ def run_trace(device, args, cfg, max_engines=None):
     wall = time.time() - t0
     counts = {name: mod.launches for name, mod in KERNELS.items()}
     assert_k1_wgmma(cfg.name, counts["flash_attention"])
+    if counts["ssm_scan"]:
+        assert_k3_tma(cfg.name, counts["ssm_scan"])
     peak = torch.cuda.max_memory_allocated()
 
     runs = report["runs"]
@@ -1567,6 +1650,16 @@ def main(argv=None):
                       f"{kd['given_delta_ms']:.4f} ms; the separate delta pass it replaces "
                       f"{kd['separate_delta_pass_ms']:.4f} ms (device "
                       f"{kd['separate_delta_pass_device_ms']:.4f} ms)")
+            if kd["name"] == "ssm_scan":
+                print(f"    ssm_scan: the parent design (simple route's kernel) on the same "
+                      f"inputs {kd['simple_route_ms']:.4f} ms, device "
+                      f"{kd['simple_route_device_ms']:.4f} ms, fp32 "
+                      f"{kd['simple_route_fp32_ms']:.4f} ms")
+                print(f"    ssm_scan: route tma; fp32 path {kd['fp32_path_ms']:.4f} ms; bounds: "
+                      f"bytes {kd['bound_bytes_ms']:.4f} ms, the exps on the special-function "
+                      f"units {kd['sfu_exp_bound_ms']:.4f} ms, split with the FMA pipe "
+                      f"({kd['mixed_pipe_poly_share']:.3f} on the polynomial) "
+                      f"{kd['mixed_pipe_bound_ms']:.4f} ms")
             if kd["name"] == "rwkv6_wkv":
                 print(f"    rwkv6_wkv: folded entry fp32 {kd['folded_fp32_ms']:.4f} ms, bf16 "
                       f"{kd['folded_bf16_ms']:.4f} ms (bound {kd['folded_bound_ms']:.4f} ms, "
@@ -1593,6 +1686,9 @@ def main(argv=None):
             if kd["name"] == "flash_attention":
                 kd["launches_by_route"] = {p: r for p, r in K1_ROUTES.items()
                                            if p != "flash[timed]"}
+            if kd["name"] == "ssm_scan":
+                kd["launches_by_route"] = {p: r for p, r in K3_ROUTES.items()
+                                           if p != "ssm_scan[timed]"}
             if kd["name"] == "flash_attention_bwd":
                 kd["launches_by_route"] = {p: r for p, r in K5_ROUTES.items()
                                            if p != "flash_bwd[timed]"}

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the `wgmma` + TMA kernels:
-// flash_attention_sm90.cu (K1, the forward) and flash_attention_bwd_sm90.cu
-// (K5, the backward). mbarriers, named barriers, TMA loads and stores through
-// 4-d tensor maps, shared-memory matrix descriptors with the 128-byte
-// swizzle, the `wgmma` shapes the two kernels use, and the host side that
+// Hopper (sm_90a) building blocks shared by the TMA kernels:
+// flash_attention_sm90.cu (K1, the forward), flash_attention_bwd_sm90.cu
+// (K5, the backward) and ssm_scan_sm90.cu (K3). mbarriers, named barriers,
+// TMA loads and stores through 4-d tensor maps, shared-memory matrix
+// descriptors with the 128-byte swizzle, the `wgmma` shapes K1 and K5 use,
+// the two exps (special-function unit and FMA pipe), and the host side that
 // encodes a tensor map through the driver's entry point (the library is
 // linked without -lcuda).
 #pragma once
@@ -226,6 +227,30 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// 2^x for x <= 0 on the FMA pipe instead of the special-function unit, as
+// exact as `ex2.approx.ftz`: x = j + f with j = round(x) and |f| <= 1/2,
+// 2^f by a degree-5 minimax polynomial with p(0) = 1 (relative error
+// 2.2e-7 = 0.92 x 2^-22 in fp32 Horner form), and j added to the result's
+// exponent field by an integer shift-add. Adding 1.5 x 2^23 rounds x to j
+// and leaves j in the low mantissa bits, so `bits << 23` is j << 23 modulo
+// 2^32. Below -127 the exponent field would wrap (to NaN), so x is clamped
+// there: j = -127 with f = 0 gives p = 1 and the bits of +0.0, and x just
+// above gives a denormal, about 0, as `ex2.approx.ftz` and exp do.
+// 10 instructions: FMNMX, 3 FADD, 5 FFMA, LEA.
+__device__ __forceinline__ float ex2_poly(float x) {
+  constexpr float kRound = 12582912.f;   // 1.5 x 2^23
+  x = fmaxf(x, -127.f);
+  const float t = x + kRound;
+  const float f = x - (t - kRound);
+  float p = 1.3202981790527701e-3f;
+  p = fmaf(p, f, 9.674952365458012e-3f);
+  p = fmaf(p, f, 5.5510472506284714e-2f);
+  p = fmaf(p, f, 2.4022166430950165e-1f);
+  p = fmaf(p, f, 6.931465864181519e-1f);
+  p = fmaf(p, f, 1.f);
+  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(t) << 23));
+}
+
 // Byte offset of (row, 8-column chunk j) in a swizzled tile stored as
 // 64-column boxes of `box_rows` rows, 128-byte rows, 16-byte chunks XOR-ed by
 // row % 8 (the layout TMA writes with the 128-byte swizzle).
@@ -273,6 +298,22 @@ inline EncodeTiled encode_fn() {
     if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// A 4-d map of `type` elements with no swizzle (a box lands densely in
+// shared memory, innermost dimension first): sizes `dims` innermost first,
+// byte strides `strides` of dimensions 1-3, boxes of `box` elements.
+// Returns 0 or 1000 + a CUresult.
+inline int make_map_dense(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                          const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                          const cuuint32_t (&box)[4]) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return 1000 + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
 // A 4-d map over (D, rows, heads, batch) of bf16 with element strides

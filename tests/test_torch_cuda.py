@@ -219,26 +219,105 @@ def test_ops_flash_backward_launches_k5(device):
     assert all(g_.transpose(1, 2).is_contiguous() for g_ in grads)
 
 
+@pytest.mark.parametrize("extreme", [False, True], ids=["softplus-dt", "extreme-dt*a"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,d_in,n", [(2, 512, 1024, 16), (2, 32, 128, 8),
-                                        (2, 200, 256, 16), (3, 37, 1000, 5),
-                                        (4, 2, 384, 16), (1, 1, 64, 3)])
-def test_ssm_scan_kernel_vs_plain(device, dtype, b, s, d_in, n):
+@pytest.mark.parametrize("b,s,d_in,n,routes", [
+    (2, 512, 1024, 16, ("tma", "tma")), (2, 32, 128, 8, ("tma", "tma")),
+    (2, 200, 256, 16, ("tma", "tma")), (3, 37, 1000, 5, ("simple", "simple")),
+    (4, 2, 384, 16, ("tma", "tma")), (1, 1, 64, 3, ("simple", "simple")),
+    (2, 50, 130, 16, ("simple", "simple")), (2, 70, 132, 12, ("tma", "simple")),
+    (3, 9, 1000, 4, ("tma", "tma"))])
+def test_ssm_scan_kernel_vs_plain(device, dtype, b, s, d_in, n, routes, extreme):
+    """Both routes against the plain version; ``extreme`` draws dt up to 50
+    and a in (-20, -1], so that dt * a reaches about -1000 (the clamp of the
+    FMA-pipe exp). ``routes``: the route in (fp32, bf16). (a near 0 as well
+    makes a long-memory state whose fp32 rounding the plain version shows
+    too: ``test_ssm_scan_kernel_at_long_memory_as_exact_as_plain``.)"""
+    rt = routes[dtype == torch.bfloat16]
+    assert ssm_k.route(dtype, d_in, n) == rt
     gen = torch.Generator(device=device).manual_seed(5)
     u = torch.randn((b, s, d_in), generator=gen, device=device).to(dtype)
-    dt = torch.nn.functional.softplus(
-        torch.randn((b, s, d_in), generator=gen, device=device) * 0.5).to(dtype)
+    if extreme:
+        dt = (torch.rand((b, s, d_in), generator=gen, device=device) * 50).to(dtype)
+        a = -1 - torch.rand((d_in, n), generator=gen, device=device) * 19
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, d_in), generator=gen, device=device) * 0.5).to(dtype)
+        a = -torch.exp(torch.randn((d_in, n), generator=gen, device=device) * 0.3)
     bm, cm = (torch.randn((b, s, n), generator=gen, device=device) for _ in range(2))
-    a = -torch.exp(torch.randn((d_in, n), generator=gen, device=device) * 0.3)
     d_skip = torch.ones(d_in, device=device)
-    before = ssm_k.launches
+    before, on_route = ssm_k.launches, ssm_k.launches_by_route[rt]
     y, h = ssm_k.ssm_scan(u, dt, bm, cm, a, d_skip)
-    assert ssm_k.launches == before + 1
+    assert ssm_k.launches == before + 1 and ssm_k.launches_by_route[rt] == on_route + 1
     assert y.dtype == dtype and h.dtype == torch.float32
     want_y, want_h = ssm_k.ssm_scan_plain(u, dt, bm, cm, a, d_skip)
     tol = 4 * TOL[dtype]
     torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, want_h, atol=tol, rtol=tol)
+
+
+def test_ssm_scan_tma_takes_views_off_16_bytes(device):
+    """Operands that start off a 16-byte boundary (contiguous views one
+    element into a buffer) stay on the tma route, through aligned copies,
+    and match the plain version."""
+    b, s, d_in, n = 2, 40, 256, 16
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def view(shape, draw, dtype=torch.float32):
+        numel = shape[0] * shape[1] * (shape[2] if len(shape) > 2 else 1)
+        buf = draw((numel + 1,), generator=gen, device=device).to(dtype)
+        return buf[1:].view(shape)
+
+    u = view((b, s, d_in), torch.randn, torch.bfloat16)
+    dt = view((b, s, d_in), torch.rand, torch.bfloat16)
+    bm, cm = view((b, s, n), torch.randn), view((b, s, n), torch.randn)
+    a = view((d_in, n), lambda shape, **kw: -torch.rand(shape, **kw))
+    ins = (u, dt, bm, cm, a, torch.ones(d_in, device=device))
+    assert all(t.data_ptr() % 16 for t in ins[:5]) and ssm_k.route(u.dtype, d_in, n) == "tma"
+    before = ssm_k.launches_by_route["tma"]
+    y, h = ssm_k.ssm_scan(*ins)
+    assert ssm_k.launches_by_route["tma"] == before + 1
+    want_y, want_h = ssm_k.ssm_scan_plain(*ins)
+    tol = 4 * TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, want_h, atol=tol, rtol=tol)
+
+
+def _ssm_scan_fp64(u, dt, bm, cm, a, d_skip):
+    """The scan in float64: the yardstick of the fp32 computations."""
+    b, s, d_in = u.shape
+    u, dt, bm, cm, a, d_skip = (t.double() for t in (u, dt, bm, cm, a, d_skip))
+    h = torch.zeros((b, d_in, a.shape[1]), dtype=torch.float64, device=u.device)
+    y = torch.empty((b, s, d_in), dtype=torch.float64, device=u.device)
+    for t in range(s):
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * u[:, t])[:, :, None] * bm[:, t, None, :])
+        y[:, t] = (h * cm[:, t, None, :]).sum(-1)
+    return y + u * d_skip, h
+
+
+def test_ssm_scan_kernel_at_long_memory_as_exact_as_plain(device):
+    """fp32, 512 steps, dt up to 50 and a in (-20, 0]: where a is near 0 the
+    state sums hundreds of steps into values of some hundreds and y cancels
+    them, so the fp32 versions differ from one another by more than the
+    fp32 tolerance. The tma route is held to be no further from a float64
+    scan than the plain version is."""
+    b, s, d_in, n, rt = 2, 512, 1024, 16, "tma"
+    assert ssm_k.route(torch.float32, d_in, n) == rt
+    gen = torch.Generator(device=device).manual_seed(5)
+    u = torch.randn((b, s, d_in), generator=gen, device=device)
+    dt = torch.rand((b, s, d_in), generator=gen, device=device) * 50
+    a = -torch.rand((d_in, n), generator=gen, device=device) * 20
+    bm, cm = (torch.randn((b, s, n), generator=gen, device=device) for _ in range(2))
+    ins = (u, dt, bm, cm, a, torch.ones(d_in, device=device))
+    before = ssm_k.launches_by_route[rt]
+    got = ssm_k.ssm_scan(*ins)
+    assert ssm_k.launches_by_route[rt] == before + 1
+    plain = ssm_k.ssm_scan_plain(*ins)
+    exact = _ssm_scan_fp64(*ins)
+    for g, p, e in zip(got, plain, exact):
+        assert torch.isfinite(g).all()
+        assert (g.double() - e).abs().max() <= (p.double() - e).abs().max()
 
 
 def test_jamba_smoke_kernels_on_vs_off(device):

@@ -136,7 +136,8 @@ def test_kernel_build_needs_the_compiler():
                                                   "flash_attention_bwd.cu",
                                                   "flash_attention_bwd_sm90.cu",
                                                   "flash_attention_sm90.cu",
-                                                  "rwkv6_wkv.cu", "ssm_scan.cu"]
+                                                  "rwkv6_wkv.cu", "ssm_scan.cu",
+                                                  "ssm_scan_sm90.cu"]
     assert _build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()

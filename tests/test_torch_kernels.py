@@ -332,6 +332,102 @@ def test_ssm_scan_plain_vs_jax_oracle_and_pallas(b, s, d, n, chunk, block_d, bf1
     _close4(o_h, h_ref, bf16)
 
 
+def _ssm_extreme_inputs(seed, b, s, d, n):
+    """dt uniform in [0, 50) and a in (-20, 0]: dt * a reaches about -1000,
+    far below where an exp computed from its exponent bits would wrap."""
+    u, _, bm, cm, _, d_skip = _ssm_inputs(seed, b, s, d, n)
+    rng = np.random.default_rng(seed + 1)
+    dt = (rng.random((b, s, d)) * 50).astype(np.float32)
+    a = (-rng.random((d, n)) * 20).astype(np.float32)
+    return u, dt, bm, cm, a, d_skip
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_ssm_scan_plain_vs_jax_oracle_and_pallas_at_extreme_decay(bf16):
+    """A decay exp(dt * a) down to exp(-1000): the plain version, the JAX
+    oracle and the Pallas kernel in interpret mode agree, finite, and a
+    state that has fully decayed holds only its last input."""
+    b, s, d, n = 2, 64, 128, 16
+    ins = _ssm_extreme_inputs(14, b, s, d, n)
+    assert (ins[1][..., None] * ins[4][None, None]).min() < -900
+    t_in, j_in = _ssm_args(ins, bf16, to_torch), _ssm_args(ins, bf16, to_jax)
+    y, h = ssm_k.ssm_scan(*t_in)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    y_ref, h_ref = jref.ssm_scan_ref(*j_in)
+    _close4(y, y_ref, bf16)
+    _close4(h, h_ref, bf16)
+    p_y, p_h = jax_ssm_scan(*j_in, interpret=True, chunk=32, block_d=128)
+    _close4(y, p_y, bf16)
+    _close4(h, p_h, bf16)
+    # where every decay of the last step is below exp(-100), h_final is the
+    # last step's input dt u B alone
+    uf, dtf, bmf = (t.float() for t in t_in[:3])
+    gone = (dtf[:, -1, :, None] * t_in[4].float()[None]) < -100
+    want = (dtf[:, -1] * uf[:, -1])[:, :, None] * bmf[:, -1, None, :]
+    assert gone.sum() > 1000
+    torch.testing.assert_close(h[gone], want.expand_as(h)[gone], rtol=1e-6, atol=1e-6)
+
+
+def _ex2_poly_numpy(x):
+    """``sm90::ex2_poly`` of ``csrc/sm90.cuh`` emulated bit for bit in numpy:
+    its clamp and coefficients read from the header, fp32 Horner steps with each fmaf
+    done in float64 (exact for a product of two fp32 values) and rounded once,
+    the exponent added to the bits modulo 2^32."""
+    import re
+    from pathlib import Path
+    src = (Path(ssm_k.__file__).parent / "csrc" / "sm90.cuh").read_text()
+    body = src[src.index("float ex2_poly(float x)"):]
+    body = body[:body.index("\n}\n")]
+    coef = [np.float32(c) for c in re.findall(r"p = (?:fmaf\(p, f, )?([0-9.e+-]+)f", body)]
+    assert len(coef) == 6 and coef[-1] == 1.0, coef
+    floor = np.float32(re.search(r"fmaxf\(x, (-?[0-9.]+)f\)", body).group(1))
+    rnd = np.float32(12582912.0)
+    x = np.maximum(x.astype(np.float32), floor)
+    t = x + rnd
+    f = x - (t - rnd)
+    p = np.full_like(f, coef[0])
+    for c in coef[1:]:
+        p = (p.astype(np.float64) * f + np.float64(c)).astype(np.float32)
+    bits = (p.view(np.uint32).astype(np.uint64)
+            + (t.view(np.uint32).astype(np.uint64) << np.uint64(23))) & np.uint64(0xFFFFFFFF)
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def test_ex2_poly_emulated_bit_for_bit():
+    """The FMA-pipe exp of the TMA route: relative error at most 2^-21 (as
+    exact as ``ex2.approx.ftz``) where 2^x is a normal number, and from the
+    clamp at -127 down to any x, a finite value in [0, 2^-126]: exactly 0 at
+    -127 and below, never the NaN an unclamped exponent would wrap to."""
+    x = np.concatenate([np.linspace(-140.0, 0.0, 1_400_001, dtype=np.float32),
+                        np.float32([-126.5, -126.9, -127.0, -127.5, -1e4, -3e38, -0.0])])
+    got = _ex2_poly_numpy(x).astype(np.float64)
+    want = np.exp2(x.astype(np.float64))
+    normal = want >= 2.0 ** -126
+    assert np.abs(got[normal] / want[normal] - 1).max() <= 2.0 ** -21
+    assert np.isfinite(got).all() and (got >= 0).all() and got[~normal].max() <= 2.0 ** -126
+    assert (got[x <= -127] == 0).all() and got[-1] == 1.0
+
+
+@pytest.mark.parametrize("dtype,d_in,n,want", [
+    (torch.bfloat16, 16384, 16, "tma"),     # jamba-1.5-large's serving shape
+    (torch.float32, 16384, 16, "tma"),
+    (torch.bfloat16, 1000, 16, "tma"),      # 2000-byte rows
+    (torch.float32, 132, 12, "tma"),        # 528-byte rows, N 12
+    (torch.bfloat16, 128, 4, "tma"),
+    (torch.bfloat16, 130, 16, "simple"),    # 260-byte rows
+    (torch.float32, 130, 16, "simple"),     # 520-byte rows
+    (torch.bfloat16, 1004, 8, "simple"),    # 2008-byte rows
+    (torch.float32, 200, 5, "simple"),      # B and C rows of 20 bytes
+    (torch.bfloat16, 1024, 3, "simple"),    # B and C rows of 12 bytes
+    (torch.float32, 1024, 1, "simple"),
+])
+def test_ssm_scan_route_by_dtype_d_in_and_n(dtype, d_in, n, want):
+    """K3's route is a function of (dtype, d_in, N) alone: ``tma`` where the
+    rows of u, dt and y and of B and C are multiples of 16 bytes."""
+    assert ssm_k.ROUTES == ("simple", "tma")
+    assert ssm_k.route(dtype, d_in, n) == want
+
+
 @pytest.mark.parametrize("b,s,d,n", [(2, 200, 32, 8), (3, 1, 40, 16), (1, 37, 50, 5)],
                          ids=["ragged-s200", "s1", "s37-d50-n5"])
 def test_ssm_scan_ragged_against_oracle(b, s, d, n):
