@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --phase kernels     # or: main, train, profile [--arch ...]
+    python3 chip_smoke.py --phase profile --arch deepseek-v3-671b
 
 Phases, each of which fails the run with a non-zero exit code:
 
@@ -43,13 +44,19 @@ Phases, each of which fails the run with a non-zero exit code:
    width, cut to one 8-layer super-block and 8 of 16 experts to fit the card
    (the selective scan in each of its 7 Mamba layers of every prefill, flash
    and decode attention in its attention layer; one engine resident at a
-   time). Every launch count is set to 0 just before a trace and checked
-   just after, and every flash-attention launch of a trace (and every
+   time), then deepseek-v3-671b at every published width (MLA with the
+   weight-absorbed decode, 256 routed experts top-8 and one shared, the MTP
+   head), cut to its 3 dense layers and one MoE layer, two engines resident
+   where they fit (MLA has no kernel, in the JAX package either, so the
+   trace must launch none). Every launch count is set to 0 just before a
+   trace and checked just after, and every flash-attention launch of a trace (and every
    forward and backward launch of the train run) must have gone through the
    ``wgmma`` route; the prefill
    logits of one level are then held against the same engine with the
    kernels off (jamba: its first Mamba layer in fp32 copies; the whole
-   model's bf16 difference is printed). Each trace's engines are freed
+   model's bf16 difference is printed; deepseek: the absorbed decode
+   against the dense path on fp32 copies of one MLA layer at full width,
+   and one ``loss_fn`` with the MTP term). Each trace's engines are freed
    before the next, so each peak memory is its own;
 4. train: phi4-mini-3.8b at full width and depth through
    ``repro_torch.launch.train.run_training`` (fp32 master weights, bf16
@@ -57,7 +64,10 @@ Phases, each of which fails the run with a non-zero exit code:
    finite loss and grad norm, moved parameters and its launches (K1 twice
    and K5 once a layer), the last step profiled; then the gradients with the
    kernels on held against the einsum path (fp32 copies at 2 layers, leaf by
-   leaf; bf16 at full depth, the first step's loss and grad norm);
+   leaf; bf16 at full depth, the first step's loss and grad norm); and one
+   step with ``remat_policy="save_attn"`` against one with ``"nothing"``
+   from the same parameters and batch (the loss bit for bit, the gradients
+   to the bf16 limits, K1 and K5 launches, step time and memory of each);
 5. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
@@ -91,6 +101,10 @@ from repro_torch.kernels import ssm_scan as ssm_k  # noqa: E402
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BW = 3.35e12
+# profiler kernel names: cuBLAS's products, and among them its fp32
+# (non-TF32) kernels
+GEMM_RE = r"nvjet|gemm|cutlass|sm90_xmma|cublas"
+FP32_GEMM_RE = r"f32f32|sgemm|gemm_f32|simt"
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 WKV_TOL = {dt: 4 * t for dt, t in TOL.items()}   # x4 for the recurrences
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-5}   # the reference's own
@@ -123,6 +137,13 @@ WKV_BH, WKV_D = B * 32, 64
 # 16384 (expand 2 x d_model 8192), d_state 16; u and dt in bf16
 JAMBA_H, SSM_DIN, SSM_N = 64, 16384, 16
 JAMBA = "jamba-1.5-large-398b"
+# deepseek-v3-671b at every published width, cut to 4 layers: the 3 dense
+# layers and one MoE layer with all 256 routed experts (15.80 B parameters,
+# 31.6 GB in bf16, at level 0)
+DEEPSEEK, DEEPSEEK_LAYERS = "deepseek-v3-671b", 4
+# two engines stay resident when the two largest levels and the working set
+# of a prefill fit under this (the card holds 80 GB)
+TWO_ENGINES_BYTES = 75e9
 KERNELS = {"flash_attention": fa_k, "decode_attention": dec_k, "ssm_scan": ssm_k,
            "rwkv6_wkv": wkv_k, "flash_attention_bwd": fab_k}
 
@@ -155,12 +176,41 @@ def jamba_cut_config():
                       moe=dataclasses.replace(cfg.moe, num_experts=8))
 
 
-def reduced_line() -> str:
+def deepseek_cut_config():
+    """deepseek-v3-671b at every published width (MLA with q_lora 1536 and
+    kv_lora 512, 128 heads, 256 routed experts top-8 and one shared, the MTP
+    head), cut in depth to what one card holds."""
     from repro_torch.configs import get_config
 
-    full, cut = get_config(JAMBA), jamba_cut_config()
+    return get_config(DEEPSEEK).scaled(num_layers=DEEPSEEK_LAYERS)
+
+
+def reduced_line(arch: str = JAMBA) -> str:
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    if arch == DEEPSEEK:
+        return f"reduced: num_layers {full.num_layers} -> {deepseek_cut_config().num_layers}"
+    cut = jamba_cut_config()
     return (f"reduced: num_layers {full.num_layers} -> {cut.num_layers}, "
             f"num_experts {full.moe.num_experts} -> {cut.moe.num_experts}")
+
+
+def param_bytes(cfg, itemsize: int = 2) -> int:
+    """Bytes of ``cfg``'s parameters, from the port's own specs (stacked
+    groups included)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import ParamSpec
+
+    plan = {g.name: g.n_units for g in tfm.layer_plan(cfg)}
+
+    def count(spec, stack):
+        if isinstance(spec, ParamSpec):
+            return int(np.prod(spec.shape)) * (stack if stack is not None else 1)
+        return sum(count(v, stack) for v in spec.values())
+
+    return itemsize * sum(count(sub, plan.get(name))
+                          for name, sub in tfm.model_param_specs(cfg).items())
 
 
 class Timer:
@@ -202,10 +252,13 @@ K5_ROUTES = {}   # the same for K5
 
 
 def _assert_route(mod, record, kernel, where, n, route):
-    routes = dict(mod.launches_by_route)
+    """Every one of the ``n`` launches on ``route``; a path that launched
+    none (an empty record) passes and is not recorded."""
+    routes = {r: mod.launches_by_route.get(r, 0) for r in mod.ROUTES}
     assert routes[route] == n and sum(routes.values()) == n, (
         f"{where}: {kernel} launches by route {routes}, expected all {n} on {route}")
-    record[where] = routes
+    if n:
+        record[where] = routes
 
 
 def assert_k1_wgmma(where, n):
@@ -1074,11 +1127,12 @@ def check_flash_bwd(device, timer):
 # ----------------------------------------------------------------------
 def _launches_per_run(cfg, steps):
     """The launches one prefill and ``steps`` decode steps of ``cfg`` make:
-    K1 once and K2 once a step for every attention layer, K3 for every
-    Mamba layer, K4 for every RWKV layer."""
+    K1 once and K2 once a step for every GQA attention layer, K3 for every
+    Mamba layer, K4 for every RWKV layer; none for an MLA layer (MLA has no
+    kernel, in the JAX package either)."""
     from repro_torch.models import transformer as tfm
 
-    n = {"gqa": 0, "mamba": 0, "rwkv": 0}
+    n = {"gqa": 0, "mla": 0, "mamba": 0, "rwkv": 0}
     for g in tfm.layer_plan(cfg):
         for sl in g.pattern:
             n[sl.mixer] += g.n_units
@@ -1106,7 +1160,8 @@ def run_trace(device, args, cfg, max_engines=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = {name: mod.launches for name, mod in KERNELS.items()}
-    assert_k1_wgmma(cfg.name, counts["flash_attention"])
+    if counts["flash_attention"]:
+        assert_k1_wgmma(cfg.name, counts["flash_attention"])
     if counts["ssm_scan"]:
         assert_k3_tma(cfg.name, counts["ssm_scan"])
     peak = torch.cuda.max_memory_allocated()
@@ -1257,9 +1312,115 @@ def jamba_checks(device, args, cfg):
     _free()
 
 
+def deepseek_checks(device, args, cfg):
+    """On the cut deepseek's level-0 engine, rebuilt from its seed (the
+    trace's pool has been freed):
+
+    * the weight-absorbed decode against the dense path, at full width
+      (128 heads, latent 512) on fp32 copies of the first MLA layer's leaves
+      and the hidden state that reaches it: ``mla_attention_dense`` over
+      PROMPT tokens; apart, a prefill of PROMPT - 1 tokens, the cache padded
+      to MAX_LEN, one ``mla_attention_decode`` step; the outputs at the last
+      position held to LOGITS_TOL_FP32 of the largest output value above 1;
+    * one ``loss_fn`` at batch B x PROMPT under ``torch.no_grad()``: ce, the
+      MoE aux and the MTP term, each finite;
+    * ``Engine.generate`` at level 0 (the trace's plan need not pick it),
+      twice: its prefill ms and ms per decode step."""
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens
+
+    eng = serve.EnginePool(cfg, device=device, dtype="bfloat16", max_len=MAX_LEN,
+                           seed=args.seed, max_engines=1).engine_for(0)
+    toks = serve.make_prompts(eng.cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
+
+    g = tfm.layer_plan(cfg)[0]
+    sub = eng.params[g.name]["sub0"]
+    p32 = {k: v[0].float() for k, v in sub["attn"].items()}
+    cfg32 = eng.cfg.scaled(dtype="float32")
+    with torch.inference_mode():
+        x = embed_tokens(eng.cfg, eng.params["embed"], toks, torch.bfloat16)
+        h = tfm._norm(eng.cfg, sub["norm_mixer"][0], x).float()
+        pos = torch.arange(PROMPT, device=device)[None]
+        dense, _ = attn.mla_attention_dense(cfg32, p32, h, pos)
+        dense = dense[:, -1]
+        _, raw = attn.mla_attention_dense(cfg32, p32, h[:, :-1], pos[:, :-1])
+        cache = attn.MLACache(*(F.pad(t, (0, 0, 0, MAX_LEN - (PROMPT - 1))) for t in raw))
+        del raw
+        step, _ = attn.mla_attention_decode(cfg32, p32, h[:, -1:], cache,
+                                            torch.full((B,), PROMPT - 1, device=device))
+    torch.cuda.synchronize()
+    d = (step[:, 0] - dense).abs().max().item()
+    scale = dense.abs().max().item()
+    nbytes = sum(v.numel() * 4 for v in p32.values())
+    print(f"{cfg.name}: absorbed decode vs dense path, fp32 copies of {g.name} unit 0 "
+          f"(MLA, {nbytes / 1e9:.2f} GB; {cfg.num_heads} heads, latent "
+          f"{cfg.mla.kv_lora_rank}), position {PROMPT - 1} of batch {B}: max abs diff "
+          f"{d:.3e} (max |out| {scale:.3f}, limit {LOGITS_TOL_FP32} x max(1, max |out|))")
+    assert torch.isfinite(step).all() and d <= LOGITS_TOL_FP32 * max(1.0, scale), (
+        f"absorbed MLA decode vs dense in fp32: {d}")
+    del p32, x, h, dense, cache, step
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        total, metrics = model_lib.loss_fn(eng.cfg, eng.params, {"tokens": toks},
+                                           use_kernels=True)
+        vals = {k: float(v) for k, v in {"total": total, **metrics}.items()}
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"{cfg.name}: loss_fn of the level-0 engine, batch {B} x {PROMPT}, no grad: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()) + f" ({ms:.1f} ms)")
+    assert set(vals) == {"total", "ce", "aux", "mtp"} and all(
+        np.isfinite(v) for v in vals.values()), vals
+    del total, metrics
+    _free()
+
+    for run in (1, 2):
+        out = eng.generate(toks, num_steps=args.decode_steps)
+        st = eng.last_stats
+        assert st["finite"] and out.shape == (B, args.decode_steps), st
+        print(f"{cfg.name}: level 0 generate, run {run}: prefill {st['prefill_ms']:.2f} ms "
+              f"(batch {B} x {PROMPT}), {st['decode_ms_per_step']:.3f} ms per decode step, "
+              f"{B * 1e3 / st['decode_ms_per_step']:.1f} tokens/s decode")
+    del eng
+    _free()
+
+
+def deepseek_trace(device, args):
+    """The cut deepseek through ``launch.serve``: two engines resident where
+    the two largest levels fit beside a prefill's working set, else one.
+    MLA launches no kernel, so every launch count must stay 0."""
+    from repro_torch.core.variants import VariantPool
+
+    cfg = deepseek_cut_config()
+    m = cfg.mla
+    assert (cfg.d_model, cfg.num_heads, m.q_lora_rank, m.kv_lora_rank) == (7168, 128, 1536, 512)
+    assert (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim) == (128, 64, 128)
+    assert (cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert) == (256, 8, 2048)
+    assert (cfg.d_ff_dense, cfg.vocab_size, cfg.mtp_depth) == (18432, 129280, 1)
+    print(reduced_line(DEEPSEEK))
+    pool = VariantPool(cfg)
+    sizes = sorted((param_bytes(v.config) for v in pool.variants), reverse=True)
+    # a prefill's working set: the fp32 scores of two MLA products, the MoE
+    # buffers and the logits, a few GB; 8 GB is kept free for it
+    max_engines = 2 if sizes[0] + sizes[1] + 8e9 <= TWO_ENGINES_BYTES else 1
+    print(f"{cfg.name}: parameters by level "
+          + ", ".join(f"{param_bytes(v.config) / 1e9:.1f}" for v in pool.variants)
+          + f" GB in bf16; max_engines={max_engines} (the two largest levels take "
+          f"{(sizes[0] + sizes[1]) / 1e9:.1f} GB)")
+    report, counts = run_trace(device, args, cfg, max_engines=max_engines)
+    assert not any(counts.values()), f"{cfg.name}: a kernel was launched: {counts}"
+    del report
+    _free()
+    deepseek_checks(device, args, cfg)
+    return counts
+
+
 def main_path(device, args):
-    """The three traces, one after the other. Returns the launch counts of
-    each kernel, read right after each trace that runs it."""
+    """The four traces, one after the other. Returns the launch counts of
+    each kernel, read right after each trace."""
     from repro_torch.configs import get_config
 
     out = {}
@@ -1305,6 +1466,8 @@ def main_path(device, args):
     del report
     _free()
     jamba_checks(device, args, cfg)
+
+    out["deepseek"] = deepseek_trace(device, args)
     return out
 
 
@@ -1325,7 +1488,8 @@ def _profile_rows(prof):
     for e in prof.key_averages():
         # kernel rows only: an operator row repeats its kernels' device time
         # and no named range (the profiler puts those on the device timeline too)
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("train."):
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith(
+                ("train.", "profile.")):
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -1436,7 +1600,7 @@ def train_phase(device, args):
             cats["K1 flash_fwd"] += dev_us
         elif "bwd_dq" in key or "bwd_dkv" in key:
             cats["K5 bwd_dq/bwd_dkv"] += dev_us
-        elif re.search(r"nvjet|gemm|cutlass|sm90_xmma|cublas", key, re.I):
+        elif re.search(GEMM_RE, key, re.I):
             cats["matmul (cuBLAS)"] += dev_us
         else:
             cats["other (ATen elementwise, copies, reductions)"] += dev_us
@@ -1490,6 +1654,8 @@ def train_phase(device, args):
         assert rel[k] <= ATTN_GRAD_TOL_BF16, (
             f"bf16 gradient of {k}, kernels on/off: {rel[k]} > {ATTN_GRAD_TOL_BF16}")
 
+    save_attn_step(device, args, cfg, tokens)
+
     # fp32 copies at full width, 2 layers: every gradient leaf
     cfg2 = cfg.scaled(num_layers=2, dtype="float32")
     params = ts.init_train_state(cfg2, tcfg, torch.Generator(device=device).manual_seed(
@@ -1516,6 +1682,82 @@ def train_phase(device, args):
     return total
 
 
+def save_attn_step(device, args, cfg, tokens):
+    """One loss-and-gradients step of ``cfg`` at full width and depth with
+    ``remat_policy="save_attn"`` (each mixer's output kept as well as each
+    layer's input), from the same parameters and batch as one with
+    ``"nothing"``. Held: the loss bit for bit, the gradients to the train
+    phase's bf16 limits (every leaf's difference relative to its norm under
+    ATTN_GRAD_TOL_BF16, the grad norm to TRAIN_GNORM_TOL), K1 twice and K5
+    once a layer under both policies (the JAX package's ``save_attn`` reruns
+    the flash forward as well: the attention's backward needs q, k, v, out
+    and lse, which neither policy keeps). Printed: the step time (CUDA
+    events) and the memory the step adds, at its peak, to what was held
+    before it, for each policy twice, in turns (nothing, save_attn,
+    save_attn, nothing); the first two are compared, and their gradients
+    dropped before the last two run."""
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    params = ts.init_train_state(cfg, ts.TrainConfig(), torch.Generator(
+        device=device).manual_seed(args.seed), device=device).params
+    kept, losses, times, peaks = None, {}, {}, {}
+    for i, policy in enumerate(("nothing", "save_attn", "save_attn", "nothing")):
+        tcfg = ts.TrainConfig(remat=True, use_kernels=True, remat_policy=policy)
+        _free()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        loss, _, grads = ts.loss_and_grads(cfg, tcfg, params, tokens)
+        t1.record()
+        torch.cuda.synchronize()
+        counts = {k: KERNELS[k].launches for k in ("flash_attention", "flash_attention_bwd")}
+        times.setdefault(policy, []).append(t0.elapsed_time(t1))
+        peaks.setdefault(policy, []).append((torch.cuda.max_memory_allocated() - base) / 1e9)
+        assert counts == {"flash_attention": 2 * cfg.num_layers,
+                          "flash_attention_bwd": cfg.num_layers}, (policy, counts)
+        assert_k1_wgmma(f"train[{policy}]", counts["flash_attention"])
+        assert_k5_wgmma(f"train[{policy}]", counts["flash_attention_bwd"])
+        losses.setdefault(policy, float(loss))
+        if i == 0:
+            kept = (loss, grads)
+        elif i == 1:
+            compared = _compare_policies(kept, (loss, grads), opt_lib)
+            kept = None
+        del grads, loss
+    for policy in ("nothing", "save_attn"):
+        print(f"train remat_policy={policy!r}: loss {losses[policy]:.6f}, step (loss and "
+              f"gradients, no update) {' / '.join(f'{t:.1f}' for t in times[policy])} ms, "
+              f"peak memory above what was held before "
+              f"{' / '.join(f'{m:.2f}' for m in peaks[policy])} GB, launches K1 "
+              f"{2 * cfg.num_layers}, K5 {cfg.num_layers} each time")
+    print(compared)
+    del params
+    _free()
+
+
+def _compare_policies(nothing, save_attn, opt_lib) -> str:
+    """The ``save_attn`` step's (loss, gradients) against the ``"nothing"``
+    step's; returns the line to print."""
+    (l0, g0), (l1, g1) = nothing, save_attn
+    assert torch.equal(l0, l1), f"save_attn loss {float(l1)} != nothing {float(l0)}"
+    worst, worst_key, equal, n = 0.0, None, 0, 0
+    for key, (a, b) in zip(_leaf_keys(g0), zip(opt_lib._leaves(g1), opt_lib._leaves(g0))):
+        rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        equal += int(torch.equal(a, b))
+        n += 1
+        if rel >= worst:
+            worst, worst_key = rel, key
+    n0, n1 = float(opt_lib.global_norm(g0)), float(opt_lib.global_norm(g1))
+    assert worst <= ATTN_GRAD_TOL_BF16 and abs(n1 - n0) / n0 <= TRAIN_GNORM_TOL, (
+        f"save_attn gradients vs nothing: worst leaf {worst_key} {worst}, norms {n1} / {n0}")
+    return (f"train save_attn vs nothing: loss equal bit for bit; {equal} of {n} gradient "
+            f"leaves equal bit for bit; worst leaf {worst_key} |diff| / |nothing| "
+            f"{worst:.2e} (limit {ATTN_GRAD_TOL_BF16}); grad norm {n1:.6f} / {n0:.6f}")
+
+
 def _leaf_keys(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -1538,6 +1780,9 @@ def profile_phase(device, args):
     if args.arch == JAMBA:
         cfg = jamba_cut_config()
         print(reduced_line())
+    elif args.arch == DEEPSEEK:
+        cfg = deepseek_cut_config()
+        print(reduced_line(DEEPSEEK))
     else:
         cfg = get_config(args.arch)
     torch.cuda.reset_peak_memory_stats()
@@ -1556,7 +1801,8 @@ def profile_phase(device, args):
 
     for name, fn in (("prefill", lambda: eng.prefill(toks)), ("4 decode steps", decode4)):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _model_ranges(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1581,13 +1827,78 @@ def profile_phase(device, args):
                 cats["K3 ssm scan"] += dev_us
             elif "wkv_kernel" in key:
                 cats["K4 wkv"] += dev_us
-            elif re.search(r"nvjet|gemm|cutlass|sm90_xmma|cublas", key, re.I):
+            elif re.search(GEMM_RE, key, re.I):
                 cats["matmul (cuBLAS)"] += dev_us
             else:
                 cats["other (ATen elementwise, copies, reductions, sort)"] += dev_us
         print("  by kind: " + ", ".join(f"{k} {v / 1e3:.2f} ms ({v / 1e3 / busy_ms:.1%})"
                                         for k, v in cats.items() if v))
+        by_range = _range_device_ms(prof)
+        for part, split in by_range.items():
+            print(f"  {part}: {split['all']:.2f} ms ({split['all'] / busy_ms:.1%} of busy): "
+                  + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items() if k != "all"))
+        if by_range:
+            print(f"  outside those ranges (embedding, norms, residuals, LM head): "
+                  f"{busy_ms - sum(v['all'] for v in by_range.values()):.2f} ms")
     print(f"profile: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+class _model_ranges:
+    """Wraps the model's MLA, MoE and dense-MLP entry points in profiler
+    ranges named ``profile.*`` while the context is open (the model's own
+    code carries no ranges)."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as attn
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models import transformer as tfm
+
+        self.saved = [(attn, "mla_attention_dense", "profile.mla"),
+                      (attn, "mla_attention_decode", "profile.mla"),
+                      (moe_mod, "moe_apply", "profile.moe"),
+                      (tfm, "mlp_apply", "profile.dense mlp")]
+        self.saved = [(mod, name, label, getattr(mod, name)) for mod, name, label in self.saved]
+        for mod, name, label, fn in self.saved:
+            setattr(mod, name, self._ranged(label, fn))
+        return self
+
+    @staticmethod
+    def _ranged(label, fn):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for mod, name, _, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _range_device_ms(prof) -> dict:
+    """Device time (ms) of the kernels launched under each ``profile.*``
+    range, split into {"all", "fp32 matmul", "bf16 matmul", "other"} by
+    kernel name."""
+    out = {}
+
+    def kernels(ev):
+        for k in getattr(ev, "kernels", []):
+            yield k.name, k.duration
+        for ch in ev.cpu_children:
+            yield from kernels(ch)
+
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.name.startswith("profile."):
+            continue
+        if ev.cpu_parent is not None and ev.cpu_parent.name.startswith("profile."):
+            continue        # a range inside another: its kernels count there
+        split = out.setdefault(ev.name[len("profile."):], dict.fromkeys(
+            ("all", "fp32 matmul", "bf16 matmul", "other"), 0.0))
+        for kname, us in kernels(ev):
+            kind = ("other" if not re.search(GEMM_RE, kname, re.I) else
+                    "fp32 matmul" if re.search(FP32_GEMM_RE, kname, re.I) else "bf16 matmul")
+            split["all"] += us / 1e3
+            split[kind] += us / 1e3
+    return out
 
 
 def main(argv=None):
@@ -1597,9 +1908,10 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--decode-steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--arch", choices=("phi4-mini-3.8b", "rwkv6-1.6b", JAMBA),
+    ap.add_argument("--arch", choices=("phi4-mini-3.8b", "rwkv6-1.6b", JAMBA, DEEPSEEK),
                     default="phi4-mini-3.8b", help="the model --phase profile runs "
-                    f"({JAMBA}: cut to one super-block and 8 experts)")
+                    f"({JAMBA}: cut to one super-block and 8 experts; {DEEPSEEK}: cut "
+                    f"to {DEEPSEEK_LAYERS} layers)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():

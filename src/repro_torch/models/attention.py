@@ -1,13 +1,15 @@
-"""GQA attention (full / sliding-window / local+global).
+"""Attention variants: GQA (full / sliding-window / local+global) and MLA.
 
-Two execution paths:
-  * dense path — full-sequence (prefill), causal (+window) mask;
+Two execution paths per variant:
+  * dense path — full-sequence (train / prefill), causal (+window) mask;
   * decode path — one query token against a preallocated KV cache.
 
 The einsum implementation here is the reference path (``use_kernel=False``);
 the CUDA kernels in ``repro_torch.kernels`` are swapped in via
 ``repro_torch.kernels.ops`` when enabled. The projections stay ``einsum``:
-they lie outside the kernels, as in the JAX package. MLA is not ported yet.
+they lie outside the kernels, as in the JAX package. MLA (DeepSeek-V3) has
+no kernel behind it in the JAX package either: it is einsums only, with
+fp32 score products on the model-dtype operands.
 """
 from __future__ import annotations
 
@@ -165,3 +167,115 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek-V3): latent KV cache + decode-time weight absorption.
+class MLACache(NamedTuple):
+    latent: torch.Tensor   # (B, S, kv_lora_rank)  — compressed KV
+    k_rope: torch.Tensor   # (B, S, qk_rope_head_dim) — shared rope key
+
+
+def mla_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, m, h = cfg.d_model, cfg.mla, cfg.num_heads
+    return {
+        "w_dq": ParamSpec((d, m.q_lora_rank), ("d_model", "lora_out")),
+        "q_norm": ParamSpec((m.q_lora_rank,), (None,), init="ones"),
+        "w_uq": ParamSpec((m.q_lora_rank, h, m.qk_nope_head_dim + m.qk_rope_head_dim),
+                          ("lora", "heads", "head_dim")),
+        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("d_model", "lora_out")),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), (None,), init="ones"),
+        "w_uk": ParamSpec((m.kv_lora_rank, h, m.qk_nope_head_dim),
+                          ("lora", "heads", "head_dim")),
+        "w_uv": ParamSpec((m.kv_lora_rank, h, m.v_head_dim),
+                          ("lora", "heads", "head_dim")),
+        "wo": ParamSpec((h, m.v_head_dim, d), ("heads", "head_dim", "d_model")),
+    }
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
+
+
+def _mla_qkv_latent(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
+    """Shared projection work: returns roped q_nope/q_rope and the cacheable
+    (latent, k_rope). RoPE covers the last ``qk_rope_head_dim`` dims of q
+    only; ``k_rope`` is one head shared by every query head."""
+    m = cfg.mla
+    q_l = rms_norm(x @ p["w_dq"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsl,lhk->bshk", q_l, p["w_uq"].to(x.dtype))
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+
+    dkv = x @ p["w_dkv"].to(x.dtype)
+    latent = rms_norm(dkv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)[..., 0, :]              # (B,S,rope)
+    return q_nope, q_rope, latent, k_rope
+
+
+def _mla_probs(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
+
+
+def mla_attention_dense(cfg: ModelConfig, p, x: torch.Tensor,
+                        positions: torch.Tensor) -> Tuple[torch.Tensor, MLACache]:
+    """Full-sequence MLA (train / prefill): decompress K/V directly. Both
+    score products are fp32 on the model-dtype operands (the JAX package's
+    ``preferred_element_type=float32``); the probabilities go back to
+    ``v.dtype`` for the value product."""
+    s = x.shape[1]
+    q_nope, q_rope, latent, k_rope = _mla_qkv_latent(cfg, p, x, positions)
+    k_nope = torch.einsum("bsl,lhk->bshk", latent, p["w_uk"].to(x.dtype))
+    v = torch.einsum("bsl,lhk->bshk", latent, p["w_uv"].to(x.dtype))
+    scores = (torch.einsum("bshk,bthk->bhst", q_nope.float(), k_nope.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(), k_rope.float())
+              ) * _mla_scale(cfg)
+    probs = _mla_probs(scores, _causal_mask(s, s, None, x.device)[None, None])
+    out = torch.einsum("bhst,bthk->bshk", probs.to(v.dtype), v)
+    proj = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return proj, MLACache(latent=latent, k_rope=k_rope)
+
+
+def mla_attention_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: MLACache,
+                         lengths: torch.Tensor) -> Tuple[torch.Tensor, MLACache]:
+    """One-token MLA decode with weight absorption: ``w_uk`` is folded into
+    the query (``q_lat``, in the model dtype), so scores and values are
+    computed in the rank-``kv_lora`` latent space (MQA-style) and ``w_uv``
+    decompresses the attended latent once a step. x: (B, 1, d_model);
+    lengths: (B,) tokens already in the cache, the new token's position.
+
+    The new latent and ``k_rope`` rows are written into ``cache`` **in
+    place** at ``lengths`` before attending (the mask is ``slot <=
+    lengths``); the returned cache is the same storage."""
+    s_cache = cache.latent.shape[1]
+    q_nope, q_rope, latent_t, k_rope_t = _mla_qkv_latent(cfg, p, x, lengths[:, None])
+    # absorb w_uk into q: (B,1,H,nope) @ (lora,H,nope) -> (B,1,H,lora)
+    q_lat = torch.einsum("bshk,lhk->bshl", q_nope, p["w_uk"].to(x.dtype))
+
+    rows = torch.arange(x.shape[0], device=x.device)
+    cache.latent[rows, lengths] = latent_t[:, 0].to(cache.latent.dtype)
+    cache.k_rope[rows, lengths] = k_rope_t[:, 0].to(cache.k_rope.dtype)
+
+    scores = (torch.einsum("bshl,btl->bhst", q_lat.float(), cache.latent.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(), cache.k_rope.float())
+              ) * _mla_scale(cfg)
+    slot = torch.arange(s_cache, device=x.device)[None, :]
+    probs = _mla_probs(scores, (slot <= lengths[:, None])[:, None, None])
+    # attend in latent space, then decompress once per step
+    out_lat = torch.einsum("bhst,btl->bshl", probs.to(cache.latent.dtype), cache.latent)
+    out = torch.einsum("bshl,lhk->bshk", out_lat, p["w_uv"].to(x.dtype))
+    proj = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return proj, cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None) -> MLACache:
+    """Zeroed latent and rope-key buffers on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    m = cfg.mla
+    return MLACache(
+        latent=torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype,
+                           device=device))

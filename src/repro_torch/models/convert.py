@@ -2,9 +2,10 @@
 
 The port keeps the tree shape and the names, so the conversion is a tree map
 (``numpy`` leaf -> tensor) plus a dtype cast, checked leaf by leaf against the
-port's own parameter specs: attention, dense MLP, Mamba (``mamba/w_in`` ...
-``a_log``, ``d_skip``), MoE (``moe/w_router``, the stacked ``we_*`` experts,
-shared ``ws_*``) and RWKV leaves alike. The caller passes a tree of numpy
+port's own parameter specs: attention (GQA, and MLA's ``w_dq`` ... ``w_uv``),
+dense MLP, Mamba (``mamba/w_in`` ... ``a_log``, ``d_skip``), MoE
+(``moe/w_router``, the stacked ``we_*`` experts, shared ``ws_*``) and RWKV
+leaves alike, and deepseek's unstacked ``mtp`` subtree. The caller passes a tree of numpy
 arrays (each JAX leaf through ``np.asarray``); nothing here imports JAX.
 """
 from __future__ import annotations

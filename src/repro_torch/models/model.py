@@ -3,8 +3,10 @@
 For ``frontend_stub`` archs (musicgen, llava-next) the modality frontend is a
 stub: callers pass precomputed frame/patch embeddings which are projected and
 prepended to the token embeddings; positions cover the concatenated stream.
-``loss_fn`` is the training loss (next-token cross-entropy plus the MoE
-load-balance term); the MTP head of deepseek is not ported yet.
+``loss_fn`` is the training loss: next-token cross-entropy plus the MoE
+load-balance term, plus deepseek's multi-token-prediction (MTP) term. Serving
+(``prefill``, ``decode_step``) does not run the MTP head, as in the JAX
+package; its parameters are carried all the same.
 """
 from __future__ import annotations
 
@@ -83,18 +85,36 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return logz - gold
 
 
+def _mtp_loss(cfg: ModelConfig, params, x_final, tokens, targets_mask):
+    """DeepSeek MTP: predict token t+2 from (h_t, emb(t+1)) through one extra
+    dense block (no kernels, as in the JAX package); returns the auxiliary
+    CE term."""
+    p = params["mtp"]
+    dtype = x_final.dtype
+    emb_next = embed_tokens(cfg, params["embed"], tokens[:, 1:], dtype)
+    h = rms_norm(x_final[:, :-1], p["norm_h"], cfg.norm_eps)
+    e = rms_norm(emb_next, p["norm_e"], cfg.norm_eps)
+    merged = torch.cat([h, e], dim=-1) @ p["proj"].to(dtype)
+    positions = torch.arange(merged.shape[1], device=merged.device)[None, :]
+    merged, _, _ = tfm.sublayer_apply(cfg, tfm.mtp_sublayer(cfg), p["block"], merged,
+                                      positions, None, None, mode="dense",
+                                      use_kernels=False)
+    merged = rms_norm(merged, p["final_norm"], cfg.norm_eps)
+    logits = lm_logits(cfg, params["embed"], merged)      # (B, S-1, V)
+    ce = _ce(logits[:, :-1], tokens[:, 2:]) * targets_mask[:, 2:]   # token t+2
+    return ce.sum() / targets_mask[:, 2:].sum().clamp_min(1.0)
+
+
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             use_kernels: bool = False, remat: bool = False,
             remat_policy: str = "nothing", aux_weight: float = 0.01,
             mtp_weight: float = 0.1) -> Tuple[torch.Tensor, Dict]:
     """Next-token CE (+ ``aux_weight`` x the MoE load-balance term, 0 for
-    dense archs). ``batch``: ``tokens`` (B, S), and
-    optionally ``loss_mask`` (B, S) and ``embeds`` (stub frontends). Returns
-    (total, {"ce", "aux"}), as the JAX package's ``loss_fn``."""
-    if cfg.mtp_depth > 0:
-        raise NotImplementedError(
-            "the multi-token-prediction loss is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+    dense archs, + ``mtp_weight`` x the MTP term where ``cfg.mtp_depth`` >
+    0). ``batch``: ``tokens`` (B, S), and optionally ``loss_mask`` (B, S)
+    and ``embeds`` (stub frontends). The backbone runs once; the LM head and
+    the MTP head share its final hidden states. Returns (total, {"ce",
+    "aux"[, "mtp"]}), as the JAX package's ``loss_fn``."""
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
     x = _embed_inputs(cfg, params, tokens, embeds)
@@ -113,7 +133,12 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     ce = _ce(logits[:, :-1], targets) * mask[:, 1:]
     loss = ce.sum() / mask[:, 1:].sum().clamp_min(1.0)
     metrics = {"ce": loss, "aux": aux}
-    return loss + aux_weight * aux, metrics
+    total = loss + aux_weight * aux
+    if cfg.mtp_depth > 0:
+        mtp = _mtp_loss(cfg, params, x, tokens, mask)
+        metrics["mtp"] = mtp
+        total = total + mtp_weight * mtp
+    return total, metrics
 
 
 # ----------------------------------------------------------------------

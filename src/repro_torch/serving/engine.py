@@ -9,7 +9,8 @@ Cache layout notes:
     max_len decode buffers. For sliding-window layers the cache is a ring
     buffer keyed by absolute position (slot = pos % window), so the last
     `window` tokens are rolled so that slot (pos % window) holds position
-    pos. Mamba and RWKV states are fixed-size and pass through unchanged.
+    pos. MLA latents and rope keys are zero-padded to max_len. Mamba and
+    RWKV states are fixed-size and pass through unchanged.
   * decode writes the caches **in place**: ``Engine.decode`` hands back the
     cache tree it was given. This replaces the buffer donation
     (``donate_argnums``) of the JAX engine.
@@ -64,6 +65,11 @@ def pad_caches(cfg: ModelConfig, raw_caches, seq_len: int, max_len: int):
             if sl.mixer == "gqa":
                 window = attn_lib.layer_window(cfg, sl.is_global)
                 unit_out[f"sub{i}"] = _pad_kv(c, max_len, seq_len, window)
+            elif sl.mixer == "mla":   # (L, B, S, r) latent, (L, B, S, rope) key
+                pad = max_len - c.latent.shape[2]
+                unit_out[f"sub{i}"] = attn_lib.MLACache(
+                    latent=F.pad(c.latent, (0, 0, 0, pad)),
+                    k_rope=F.pad(c.k_rope, (0, 0, 0, pad)))
             else:   # Mamba and RWKV states are fixed-size
                 unit_out[f"sub{i}"] = c
         out[g.name] = unit_out

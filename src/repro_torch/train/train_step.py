@@ -25,7 +25,7 @@ class TrainConfig:
     remat: bool = True
     microbatches: int = 1           # grad accumulation
     use_kernels: bool = False
-    remat_policy: str = "nothing"   # "nothing" ("save_attn" is not ported yet)
+    remat_policy: str = "nothing"   # "nothing" | "save_attn"
 
 
 class TrainState(NamedTuple):

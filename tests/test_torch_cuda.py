@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip. Run them on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-(``chip_smoke.py`` makes the same comparisons at more shapes, and times them.)"""
+(``chip_smoke.py`` makes the same comparisons at more shapes, and times them.)
+The MLA cases at the end hold no kernel (MLA has none, in either package):
+they run deepseek's weight-absorbed decode and smoke engine on the card."""
 import pytest
 import torch
 
@@ -479,3 +481,64 @@ def test_rwkv6_wkv_model_kernel_vs_plain(device, view, dtype, b, s, h, dk, dv):
     fy, fst = wkv_k.rwkv6_wkv(fold(r), fold(k), fold(v), fold(w), u.repeat(b, 1))
     assert torch.equal(fy.reshape(b, h, s, dv).transpose(1, 2), y)
     assert torch.equal(fst.reshape(b, h, dk, dv), st)
+
+
+def test_mla_absorbed_decode_vs_dense_on_the_card(device):
+    """MLA at deepseek-v3's head and latent widths (16 of its 128 heads), fp32
+    on the card: prefill S-1 tokens, pad the cache, one absorbed decode step,
+    against the dense path over S tokens at the last position."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    cfg = get_config("deepseek-v3-671b").scaled(d_model=1024, num_heads=16,
+                                                dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(3)
+    p = {}
+    for name, spec in attn.mla_param_specs(cfg).items():
+        t = torch.randn(spec.shape, generator=gen, device=device)
+        p[name] = 1.0 + 0.1 * t if spec.init == "ones" else t / spec.shape[0] ** 0.5
+    b, s = 2, 130
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=device)
+    pos = torch.arange(s, device=device)[None]
+    full, _ = attn.mla_attention_dense(cfg, p, x, pos)
+    _, raw = attn.mla_attention_dense(cfg, p, x[:, :-1], pos[:, :-1])
+    cache = attn.init_mla_cache(cfg, b, 256, torch.float32, device=device)
+    cache.latent[:, :s - 1] = raw.latent
+    cache.k_rope[:, :s - 1] = raw.k_rope
+    step, _ = attn.mla_attention_decode(cfg, p, x[:, -1:], cache,
+                                        torch.full((b,), s - 1, device=device))
+    scale = max(1.0, full[:, -1].abs().max().item())
+    torch.testing.assert_close(step[:, 0], full[:, -1], atol=5e-4 * scale, rtol=0)
+
+
+def test_deepseek_smoke_on_the_card_vs_cpu(device):
+    """The deepseek smoke engine in fp32: prefill and three decode steps on
+    the card against the same weights on the CPU, and the MTP loss."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = get_smoke_config("deepseek-v3-671b").scaled(dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(4))
+    steps, fed = {}, []          # the card is fed the CPU's greedy tokens
+    for dev in ("cpu", device):
+        tree = _tree_to(params, dev)
+        eng = Engine(cfg, tree, EngineConfig(max_len=32), device=dev)
+        logits, caches, lengths = eng.prefill(toks)
+        out = [logits]
+        for i in range(3):
+            if dev == "cpu":
+                fed.append(logits.argmax(-1))
+            logits, caches, lengths = eng.decode(caches, lengths, fed[i])
+            out.append(logits)
+        with torch.no_grad():
+            _, metrics = model_lib.loss_fn(cfg, tree, {"tokens": toks.to(dev)})
+        steps[str(dev)] = [o.cpu() for o in out] + [metrics["mtp"].cpu()]
+    for a_, b_ in zip(steps["cpu"], steps[str(device)]):
+        torch.testing.assert_close(b_, a_, atol=5e-4, rtol=5e-4)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

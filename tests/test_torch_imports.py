@@ -125,6 +125,24 @@ def test_entry_points_raise_without_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_mla_entry_points_raise_without_cuda():
+    """MLA's caches and deepseek's parameters (MTP head included) follow the
+    device rule too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.models.attention import init_mla_cache
+    cfg = get_smoke_config("deepseek-v3-671b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_mla_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, 0)
+    cache = init_cache(cfg, 1, 4, device="cpu")
+    assert cache["layers"]["sub0"].latent.device.type == "cpu"
+    assert init_params(cfg, 0, device="cpu")["mtp"]["proj"].device.type == "cpu"
+
+
 def test_kernel_build_needs_the_compiler():
     """No fallback: where ``nvcc`` is missing the build raises."""
     from repro_torch.kernels import _build

@@ -23,8 +23,8 @@ from _torch_util import (as_np, numpy_params, to_jax, to_torch, tree_to_jax,
                          tree_to_numpy)
 
 ARCHS = ["phi4-mini-3.8b", "qwen3-32b", "gemma2-2b", "llava-next-mistral-7b",
-         "musicgen-medium", "rwkv6-1.6b", "jamba-1.5-large-398b", "mixtral-8x7b"]
-NOT_PORTED = ["deepseek-v3-671b"]
+         "musicgen-medium", "rwkv6-1.6b", "jamba-1.5-large-398b", "mixtral-8x7b",
+         "deepseek-v3-671b"]
 
 
 def _inputs(cfg, seed, b=2, s=32):
@@ -211,11 +211,3 @@ def test_init_params_seeded_and_shaped():
     assert abs(float(wq.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.1
     specs = tfm.model_param_specs(cfg)
     assert isinstance(specs["final_norm"], ParamSpec)
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_mixers_raise(arch):
-    """Archs whose mixers or MLP kinds this slice does not run fail loudly
-    and name the roadmap item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(get_smoke_config(arch), 0, device="cpu")

@@ -129,3 +129,31 @@ def test_aux_load_balance_loss_matches_jax(arch):
 def test_shard_activation_is_the_identity():
     x = torch.randn(2, 3, 4)
     assert moe.shard_activation(x, ("experts", None, None)) is x
+
+
+@pytest.mark.parametrize("b,s", [(8, 1), (8, 512)], ids=["T8-decode", "T4096-prefill"])
+def test_moe_apply_at_deepseek_routing_matches_jax(b, s):
+    """deepseek-v3's routing at its published counts (256 experts, top-8,
+    one shared expert, ``router_scale`` 2.5) at a narrow width, at the cut
+    deepseek's decode (T = 8, capacity 8) and prefill (T = 4096, capacity
+    160) token counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    full = get_config("deepseek-v3-671b").moe
+    assert (full.num_experts, full.top_k, full.num_shared_experts) == (256, 8, 1)
+    narrow = dataclasses.replace(full, d_ff_expert=16)
+    cfg = get_smoke_config("deepseek-v3-671b").scaled(d_model=32, moe=narrow,
+                                                      dtype="float32")
+    jcfg = jax_smoke_config("deepseek-v3-671b").scaled(
+        d_model=32, moe=dataclasses.replace(jax_smoke_config("deepseek-v3-671b").moe,
+                                            num_experts=256, top_k=8, d_ff_expert=16),
+        dtype="float32")
+    params = _moe_params(cfg, 7)
+    x = np.random.default_rng(8).standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    got = moe.moe_apply(cfg, {k: torch.from_numpy(v) for k, v in params.items()},
+                        torch.from_numpy(x))
+    want = jmoe.moe_apply(jcfg, {k: jnp.asarray(v) for k, v in params.items()},
+                          jnp.asarray(x))
+    assert moe.capacity(b * s, 256, 8) == (8 if s == 1 else 160)
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=TOL, rtol=TOL)

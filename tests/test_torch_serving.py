@@ -2,7 +2,8 @@
 full forward pass, the ring-buffer slot invariant, and greedy ``generate``
 emitting the same tokens as the JAX engine on the same fp32 weights, with a
 sliding window (past the wrap of the ring) and without, and for the
-recurrent (rwkv6), hybrid Mamba + MoE (jamba) and MoE (mixtral) models."""
+recurrent (rwkv6), hybrid Mamba + MoE (jamba), MoE (mixtral) and MLA + MoE
+(deepseek-v3) models."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,6 +128,7 @@ GENERATE_CASES = [
     ("rwkv6-1.6b", {}, 12, 8),                           # recurrent state, no cache
     ("jamba-1.5-large-398b", {}, 12, 8),                 # Mamba states + KV, MoE
     ("mixtral-8x7b", {}, 10, 10),                        # MoE, window 16 wraps
+    ("deepseek-v3-671b", {}, 11, 8),                     # MLA latent caches, MoE
 ]
 
 

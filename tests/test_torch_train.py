@@ -40,6 +40,12 @@ from _torch_util import as_np, numpy_params, to_jax, to_torch, tree_to_jax
 
 TOL = {False: 5e-5, True: 2e-2}
 MODEL_TOL = 5e-4
+# deepseek-v3's gradients against the JAX package, relative to each leaf's
+# largest value above 1: fp32 rounding through MLA, the MoE gates and the
+# MTP head puts the leaves that sum over every token (embedding, norm
+# scales, w_dkv) 1.0e-6 to 4.5e-6 apart over eight seeds of this test's
+# shapes, so 1e-6 holds for some seeds only
+DEEPSEEK_GRAD_TOL = 1e-5
 
 
 def _close(got, want, tol, scale_atol=False):
@@ -265,19 +271,152 @@ def test_split_units_gradient_lands_in_the_stacked_buffer():
     assert w_up[1].grad.data_ptr() == grads["layers"]["sub0"]["mlp"]["w_up"][1].data_ptr()
 
 
-def test_unported_training_options_raise():
+def test_remat_outside_dense_mode_raises():
+    """Remat recomputes training units only, under a policy the JAX package
+    names."""
     cfg = get_smoke_config("phi4-mini-3.8b").scaled(dtype="float32")
     params = params_from_jax(cfg, numpy_params(cfg, seed=25), device="cpu")
-    batch = to_device(_jax_batch(cfg, 26), "cpu")
-    with pytest.raises(NotImplementedError, match="save_attn"):
-        model_lib.loss_fn(cfg, params, batch, remat=True, remat_policy="save_attn")
-    with pytest.raises(NotImplementedError, match="multi-token"):
-        model_lib.loss_fn(cfg.scaled(mtp_depth=1), params, batch)
     g = tfm.layer_plan(cfg)[0]
     for mode in ("prefill", "decode"):
         with pytest.raises(ValueError, match="remat"):
             tfm.group_apply(cfg, g, params[g.name], None, None, None, None, mode=mode,
                             use_kernels=False, remat=True)
+    batch = to_device(_jax_batch(cfg, 26), "cpu")
+    with pytest.raises(ValueError, match="remat_policy"):
+        model_lib.loss_fn(cfg, params, batch, remat=True, remat_policy="save_everything")
+
+
+def _jax_value_and_grads(jcfg, tree, batch, **kw):
+    (jl, jm), jg = jax.value_and_grad(
+        functools.partial(jax_loss_fn, jcfg, **kw), has_aux=True)(
+            tree_to_jax(tree), {k: jnp.asarray(v) for k, v in batch.items()})
+    return jl, jm, _flat(jax.tree_util.tree_map(np.asarray, jg))
+
+
+@pytest.mark.parametrize("use_kernels", [False, True], ids=["einsum", "kernels"])
+def test_mtp_loss_and_grads_match_jax(use_kernels):
+    """deepseek-v3's ``loss_fn``: ``ce``, the MoE ``aux``, the MTP term
+    (token t+2 from the final hidden state and the embedding of t+1 through
+    one dense MLA block) and the total, to 5e-5; every gradient leaf, the
+    ``mtp`` subtree's included, to ``DEEPSEEK_GRAD_TOL`` relative to the
+    leaf's largest value above 1. The MLA layers launch no kernel, so both
+    settings take the same path."""
+    arch = "deepseek-v3-671b"
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    tree = numpy_params(cfg, seed=21)
+    batch = _jax_batch(cfg, 22)
+    jl, jm, want = _jax_value_and_grads(jax_smoke_config(arch).scaled(dtype="float32"),
+                                        tree, batch, use_kernels=use_kernels, remat=True)
+    params = params_from_jax(cfg, tree, device="cpu")
+    loss, metrics, grads = _port_grads(cfg, params, to_device(batch, "cpu"),
+                                       use_kernels, remat=True)
+    assert set(metrics) == {"ce", "aux", "mtp"} and float(metrics["mtp"]) > 0.0
+    for k in ("ce", "aux", "mtp"):
+        _close(metrics[k], jm[k], TOL[False])
+    _close(loss, jl, TOL[False])
+    _close(loss, metrics["ce"] + 0.01 * metrics["aux"] + 0.1 * metrics["mtp"], 1e-6)
+    got = _flat(grads)
+    assert got.keys() == want.keys() and "mtp/block/attn/w_uk" in got
+    for key in want:
+        _close(got[key], want[key], DEEPSEEK_GRAD_TOL, scale_atol=True)
+
+
+# (arch, use_kernels, gradient tolerance against the JAX package): the GQA
+# archs to 1e-6 scaled, deepseek to DEEPSEEK_GRAD_TOL; the two recurrences
+# sum their loops in another order and drift by up to 2e-5 under either
+# policy, so they keep the model-level 5e-4 of the tests above
+SAVE_ATTN_CASES = [("phi4-mini-3.8b", True, 1e-6), ("gemma2-2b", True, 1e-6),
+                   ("deepseek-v3-671b", False, DEEPSEEK_GRAD_TOL),
+                   ("jamba-1.5-large-398b", False, MODEL_TOL),
+                   ("rwkv6-1.6b", False, MODEL_TOL)]
+
+
+@pytest.mark.parametrize("arch,use_kernels,tol", SAVE_ATTN_CASES)
+def test_save_attn_grads_match_jax_and_nothing(arch, use_kernels, tol):
+    """``remat_policy="save_attn"`` keeps each mixer's output as well as the
+    unit's input: its loss and gradients against the JAX package's
+    ``save_attn`` on the same weights, and equal bit for bit to the port's
+    own ``"nothing"`` (the same arithmetic, recomputed from other saved
+    tensors). gemma2 brings two sublayers a unit and post norms, deepseek
+    MLA, MoE and the MTP head, jamba Mamba layers, rwkv6 a sublayer that
+    names no mixer output."""
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    tree = numpy_params(cfg, seed=31)
+    batch = _jax_batch(cfg, 32)
+    jl, jm, want = _jax_value_and_grads(jax_smoke_config(arch).scaled(dtype="float32"),
+                                        tree, batch, use_kernels=use_kernels, remat=True,
+                                        remat_policy="save_attn")
+    params = params_from_jax(cfg, tree, device="cpu")
+    out = {}
+    for policy in ("nothing", "save_attn"):
+        tcfg = ts.TrainConfig(remat=True, use_kernels=use_kernels, remat_policy=policy)
+        out[policy] = ts.loss_and_grads(cfg, tcfg, params, to_device(batch, "cpu"))
+    loss, metrics, grads = out["save_attn"]
+    _close(loss, jl, TOL[False])
+    _close(metrics["ce"], jm["ce"], TOL[False])
+    got = _flat(grads)
+    assert got.keys() == want.keys()
+    for key in want:
+        _close(got[key], want[key], tol, scale_atol=True)
+    assert torch.equal(loss, out["nothing"][0])
+    for key, g in _flat(out["nothing"][2]).items():
+        np.testing.assert_array_equal(got[key], g, err_msg=key)
+
+
+def _jax_flash_calls(jaxpr, calls):
+    """Pallas calls of the flash kernels in ``jaxpr`` and every jaxpr inside
+    it, by kind: the forward returns (out, lse), lse one rank lower; the
+    backward's dq kernel returns dq alone, its dk/dv kernel (dk, dv)."""
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "pallas_call":
+            avals = eqn.params["out_avals"]
+            if len(avals) == 2 and len(avals[1].shape) == len(avals[0].shape) - 1:
+                calls["fwd"] += 1
+            else:
+                calls["bwd"] += 1
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (list, tuple)) else [v]):
+                inner = getattr(sub, "jaxpr", sub)
+                if hasattr(inner, "eqns"):
+                    _jax_flash_calls(inner, calls)
+    return calls
+
+
+@pytest.mark.parametrize("policy", ["nothing", "save_attn"])
+def test_remat_reruns_the_flash_forward_as_jax_does(policy, monkeypatch):
+    """What each remat policy recomputes, counted in both packages: the
+    flash forward runs twice a layer and step (once more in the backward,
+    whose attention needs q, k, v, out and lse, which no policy keeps), the
+    backward once, under ``"save_attn"`` as under ``"nothing"``. JAX: the
+    Pallas calls in the jaxpr of the gradient, whose scan body is one layer.
+    Port: the calls into K1's and K5's wrappers (their plain versions on the
+    CPU)."""
+    arch = "phi4-mini-3.8b"
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    tree = numpy_params(cfg, seed=33)
+    batch = _jax_batch(cfg, 34)
+    f = functools.partial(jax_loss_fn, jax_smoke_config(arch).scaled(dtype="float32"),
+                          use_kernels=True, remat=True, remat_policy=policy)
+    jaxpr = jax.make_jaxpr(jax.grad(lambda p, b: f(p, b)[0]))(
+        tree_to_jax(tree), {k: jnp.asarray(v) for k, v in batch.items()})
+    want = _jax_flash_calls(jaxpr.jaxpr, {"fwd": 0, "bwd": 0})
+    assert want == {"fwd": 2, "bwd": 2}          # one layer: K1 twice, dq + dk/dv
+
+    calls = {"fwd": 0, "bwd": 0}
+
+    def counting(kind, fn):
+        def wrapped(*a, **kw):
+            calls[kind] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(fa_k, "flash_attention", counting("fwd", fa_k.flash_attention))
+    monkeypatch.setattr(fab_k, "flash_attention_bwd",
+                        counting("bwd", fab_k.flash_attention_bwd))
+    params = params_from_jax(cfg, tree, device="cpu")
+    tcfg = ts.TrainConfig(remat=True, use_kernels=True, remat_policy=policy)
+    ts.loss_and_grads(cfg, tcfg, params, to_device(batch, "cpu"))
+    assert calls == {"fwd": want["fwd"] * cfg.num_layers, "bwd": cfg.num_layers}
 
 
 # ----------------------------------------------------------------------
