@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py            # everything, as below
-    python3 chip_smoke.py --phase kernels     # or: main, train, profile [--arch ...]
+    python3 chip_smoke.py --phase kernels     # or: main, train, sim, profile [--arch ...]
     python3 chip_smoke.py --phase profile --arch deepseek-v3-671b
 
 Phases, each of which fails the run with a non-zero exit code:
@@ -68,7 +68,18 @@ Phases, each of which fails the run with a non-zero exit code:
    step with ``remat_policy="save_attn"`` against one with ``"nothing"``
    from the same parameters and batch (the loss bit for bit, the gradients
    to the bf16 limits, K1 and K5 launches, step time and memory of each);
-5. the ``kernels`` JSON line, the card line, and the final JSON line.
+5. sim: the online simulator (``repro_torch.launch.sim``, pure host code)
+   over analytic ``H100_SXM`` tables of phi4-mini-3.8b, the six scenarios of
+   the golden digests x ``proportional`` x {none, full} at horizon 6 s,
+   seed 0, 2 standby nodes, each run twice and held to the same digest of
+   records, log and summary; then the sharded control plane on
+   ``fleet-64``, ``cells=1`` held to the unsharded run record for record,
+   and ``cells=4``; and ``fleet-1024`` (requests sized for 64-node cells)
+   at ``cells=16`` under full control, run twice, held to one digest and
+   required to serve requests within deadline. One JSON line per case (goodput, p99, shed rate, mean
+   accuracy, events/s, wall time: host times, beside the card line); every
+   kernel's launch count must stay 0 across the phase;
+6. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
 """
@@ -144,6 +155,14 @@ DEEPSEEK, DEEPSEEK_LAYERS = "deepseek-v3-671b", 4
 # two engines stay resident when the two largest levels and the working set
 # of a prefill fit under this (the card holds 80 GB)
 TWO_ENGINES_BYTES = 75e9
+# the sim phase: the golden digests' cases (tests/_golden_digest.py), on the
+# card's tables; then the sharded control plane on a 64-node fleet, and on a
+# 1024-node fleet whose requests are sized for its 64-node cells
+SIM_SCENARIOS = ("steady", "diurnal", "node-churn", "straggler-storm",
+                 "overload", "flash-crowd")
+SIM_HORIZON_S, SIM_SEED, SIM_STANDBY = 6.0, 0, 2
+SIM_FLEET = "fleet-64"
+SIM_CELLS_FLEET, SIM_CELLS, SIM_CELLS_HORIZON_S = "fleet-1024", 16, 0.05
 KERNELS = {"flash_attention": fa_k, "decode_attention": dec_k, "ssm_scan": ssm_k,
            "rwkv6_wkv": wkv_k, "flash_attention_bwd": fab_k}
 
@@ -1901,9 +1920,108 @@ def _range_device_ms(prof) -> dict:
     return out
 
 
+def sim_digest(report) -> str:
+    """sha256 over a simulator run's records, log and summary, in the shapes
+    of the reference's golden digest (wall-clock, event-count and plan-cache
+    counters left out: they are host speed, not serving behaviour)."""
+    import hashlib
+
+    records = [
+        (int(r.request.rid), repr(r.arrival_s), repr(r.dispatch_s),
+         repr(r.finish_s), bool(r.rejected), r.reject_reason,
+         bool(r.degraded_admission), int(r.redistributed),
+         repr(r.latency_s) if r.done else "",
+         bool(r.meets_deadline) if r.done else None)
+        for r in report.records]
+    summary = sorted(
+        (k, repr(v)) for k, v in report.summary().items()
+        if k not in ("wall_s", "n_events", "plan_cache_hits", "plan_cache_misses"))
+    blob = json.dumps({"records": records, "log": list(report.log),
+                       "summary": summary}, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def _sim_run(scenario, control, cells=0, horizon_s=SIM_HORIZON_S):
+    """One simulator run through ``launch.sim.build_sim`` on the card's
+    tables (``H100_SXM``). Returns (report, host seconds of build + run)."""
+    from repro_torch.launch import sim as launch_sim
+
+    t0 = time.perf_counter()
+    sim, _ = launch_sim.build_sim(scenario, "proportional", control, seed=SIM_SEED,
+                                  horizon_s=horizon_s, num_standby=SIM_STANDBY,
+                                  cells=cells)
+    report = sim.run()
+    return report, time.perf_counter() - t0
+
+
+def _sim_line(case, report, wall, card, **extra):
+    s = report.summary()
+    for k in ("goodput_rps", "p99_latency_s", "shed_rate", "mean_acc"):
+        assert np.isfinite(s[k]) and s[k] >= 0, (case, k, s[k])
+    assert s["offered"] > 0 and report.n_events > 0, (case, s["offered"])
+    row = {"sim": case, "offered": int(s["offered"]), "completed": int(s["completed"]),
+           "goodput_rps": s["goodput_rps"], "p99_latency_s": s["p99_latency_s"],
+           "shed_rate": s["shed_rate"], "mean_acc": s["mean_acc"],
+           "events": report.n_events, "events_per_s": report.n_events / report.wall_s,
+           "loop_wall_s": report.wall_s, "host_wall_s": wall, **extra,
+           "clock": "host", "card": card}
+    print(json.dumps(row))
+    return row
+
+
+def sim_phase(card):
+    """The online simulator and the control plane on the card's machine:
+    pure host code over analytic ``H100_SXM`` tables, so it launches no
+    kernel (asserted). Each digest case runs twice and must give the same
+    digest; the sharded control plane at ``cells=1`` must equal the
+    unsharded gateway record for record. Times are the host's. Returns the
+    launch counts across the phase (all 0)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    print(f"sim: {len(SIM_SCENARIOS)} scenarios x proportional x (none, full), "
+          f"horizon {SIM_HORIZON_S} s, seed {SIM_SEED}, {SIM_STANDBY} standby, "
+          "tables H100_SXM; host times on the card's machine")
+    for scenario in SIM_SCENARIOS:
+        for control in ("none", "full"):
+            (a, wall), (b, _) = _sim_run(scenario, control), _sim_run(scenario, control)
+            digest = sim_digest(a)
+            assert digest == sim_digest(b), f"{scenario}/{control}: two runs differ"
+            _sim_line(f"{scenario}/proportional/{control}", a, wall, card,
+                      digest=digest[:16])
+    base, _ = _sim_run(SIM_FLEET, "full")
+    one, wall = _sim_run(SIM_FLEET, "full", cells=1)
+    assert len(one.records) == len(base.records) > 0
+    for x, y in zip(one.records, base.records):
+        assert (x.request, x.arrival_s, x.dispatch_s, x.finish_s, x.rejected,
+                x.reject_reason, x.degraded_admission, x.redistributed,
+                x.dispatch) == (y.request, y.arrival_s, y.dispatch_s, y.finish_s,
+                                y.rejected, y.reject_reason, y.degraded_admission,
+                                y.redistributed, y.dispatch), x.request.rid
+    assert one.log == base.log and sim_digest(one) == sim_digest(base)
+    _sim_line(f"{SIM_FLEET}/proportional/full/cells1", one, wall, card,
+              equals_unsharded=True)
+    # fleet-64 sizes its requests for the whole fleet, so a 16-node cell
+    # meets no deadline: these two runs exercise the router and the gate only
+    for control in ("none", "full"):
+        four, wall = _sim_run(SIM_FLEET, control, cells=4)
+        _sim_line(f"{SIM_FLEET}/proportional/{control}/cells4", four, wall, card)
+    (a, wall), (b, _) = (_sim_run(SIM_CELLS_FLEET, "full", cells=SIM_CELLS,
+                                  horizon_s=SIM_CELLS_HORIZON_S) for _ in range(2))
+    case = f"{SIM_CELLS_FLEET}/proportional/full/cells{SIM_CELLS}"
+    digest = sim_digest(a)
+    assert digest == sim_digest(b), f"{case}: two runs differ"
+    met = int(sum(r.meets_deadline for r in a.records))
+    assert met > len(a.records) // 2, f"{case}: {met} of {len(a.records)} within deadline"
+    _sim_line(case, a, wall, card, digest=digest[:16], within_deadline=met)
+    counts = {name: mod.launches for name, mod in KERNELS.items()}
+    assert not any(counts.values()), f"the sim phase launched kernels: {counts}"
+    print(f"sim: launches {counts}; phase wall {time.perf_counter() - t0:.2f} s (host)")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "main", "train", "profile"),
+    ap.add_argument("--phase", choices=("all", "kernels", "main", "train", "sim", "profile"),
                     default="all")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--decode-steps", type=int, default=16)
@@ -1923,7 +2041,7 @@ def main(argv=None):
     print("torch", torch.__version__, "cuda", torch.version.cuda)
 
     t0 = time.time()
-    _build.load()
+    _build.load()   # every phase builds, the sim phase too: its launches are counted
     print(f"set-up: kernels built in {time.time() - t0:.1f} s "
           f"({len(_build.sources())} sources -> {_build.build_dir()})")
     for src, log in re.findall(r"== (\S+) \(exit \d+\)\n(.*?)(?=\n== |\Z)",
@@ -1984,6 +2102,8 @@ def main(argv=None):
         paths.update(main_path(device, args))
     if args.phase in ("all", "train"):
         paths["train"] = train_phase(device, args)
+    if args.phase in ("all", "sim"):
+        paths["sim"] = sim_phase(card)
     if args.phase == "all":
         # each kernel's launches on the path that carries it (K1 and K2: the
         # first trace), and on every path that ran it

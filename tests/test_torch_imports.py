@@ -55,13 +55,47 @@ def test_modules_found():
                      "repro_torch.train.optimizer", "repro_torch.train.train_step",
                      "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
                      "repro_torch.launch.train", "repro_torch.kernels.ssm_scan",
-                     "repro_torch.models.moe"):
+                     "repro_torch.models.moe",
+                     "repro_torch.sched.shard", "repro_torch.core.dispatch",
+                     "repro_torch.sim.events", "repro_torch.sim.events_reference",
+                     "repro_torch.sim.arrivals", "repro_torch.sim.simulator",
+                     "repro_torch.sim.scenarios", "repro_torch.sim.sharded",
+                     "repro_torch.control.admission",
+                     "repro_torch.control.autoscaler",
+                     "repro_torch.control.fairshare",
+                     "repro_torch.analysis.core", "repro_torch.analysis.runner",
+                     "repro_torch.analysis.baseline",
+                     "repro_torch.analysis.detlint",
+                     "repro_torch.analysis.checkers.det001_wallclock",
+                     "repro_torch.analysis.checkers.det002_unordered",
+                     "repro_torch.analysis.checkers.det003_heappush",
+                     "repro_torch.analysis.checkers.det004_frozen",
+                     "repro_torch.analysis.checkers.det005_rng",
+                     "repro_torch.analysis.checkers.det006_tiebreak",
+                     "repro_torch.launch.sim"):
         assert expected in MODULES
 
 
 def test_importing_every_module_leaves_jax_and_repro_out():
     proc = _run(_PROBE.format(mods=MODULES))
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_host_stack_imports_no_framework():
+    """The simulator, the control plane, the sharded control plane, the
+    dispatch shim, detlint and the simulator's entry point are pure host
+    code: importing them pulls in neither torch nor jax nor the JAX
+    package."""
+    mods = ["repro_torch.sim", "repro_torch.control",
+            "repro_torch.analysis.detlint", "repro_torch.sched.shard",
+            "repro_torch.core.dispatch", "repro_torch.launch.sim"]
+    code = _PROBE.format(mods=mods).replace(
+        "('jax', 'jaxlib', 'repro', 'triton')",
+        "('jax', 'jaxlib', 'repro', 'triton', 'torch')")
+    assert "'torch')" in code
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "BAD []"
 
 
 def test_sources_do_not_name_jax():
