@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py            # everything, as below
-    python3 chip_smoke.py --phase kernels     # or: main, train, sim, profile [--arch ...]
+    python3 chip_smoke.py --phase kernels     # or: main, train, sim, dryrun, profile [--arch ...]
+    python3 chip_smoke.py --phase dryrun --all     # every dry-run cell
     python3 chip_smoke.py --phase profile --arch deepseek-v3-671b
 
 Phases, each of which fails the run with a non-zero exit code:
@@ -79,13 +80,34 @@ Phases, each of which fails the run with a non-zero exit code:
    required to serve requests within deadline. One JSON line per case (goodput, p99, shed rate, mean
    accuracy, events/s, wall time: host times, beside the card line); every
    kernel's launch count must stay 0 across the phase;
-6. the ``kernels`` JSON line, the card line, and the final JSON line.
+6. dryrun: ``repro_torch.launch.dryrun.run_cell`` with the kernels on, at
+   every published width, on phi4-mini-3.8b's ``train_4k``, ``prefill_32k``
+   and ``decode_32k``, gemma2-2b's ``prefill_32k`` (K1's ``mma`` route at
+   bf16, D 256, S up to 8192), qwen3-32b's ``decode_32k`` (K2 at G = 8 over
+   32768 slots) and rwkv6-1.6b's ``prefill_32k`` (K4) and ``long_500k``: each
+   cell's step runs at one data shard's batch of the reference's mesh at 2
+   and 4 layer units (prefill at 3 lengths), one JSON line a cell (counted
+   and analytic FLOPs, reckoned bytes, the roofline with H100 peaks, peak
+   memory and step time at the depths run), every output finite and each
+   kernel's launches equal to layers x calls at those depths; then the
+   kernels-off FLOP count held against the kernels-on count plus the
+   kernels' analytic FLOPs (phi4-mini at 2 layers, prefill and decode, to
+   1e-9); then every kernel call the cells made, replayed once for each
+   distinct signature (each tensor's shape, strides and dtype, every other
+   argument's value) on random inputs of that layout and held against its
+   plain version (run in slices of batch and kv heads where its score
+   matrix is large), timed; and K1 and K2 at gemma2-2b's and qwen3-32b's
+   shapes timed beside their plain versions and SDPA. ``--phase dryrun
+   --all`` runs every cell of ``configs.cells()`` instead (outside ``all``);
+7. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import gc
 import json
 import os
@@ -108,6 +130,7 @@ from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab_k  # noqa: E402
 from repro_torch.kernels import rwkv6_wkv as wkv_k  # noqa: E402
 from repro_torch.kernels import ssm_scan as ssm_k  # noqa: E402
+from repro_torch.kernels.ops import KERNELS, ROUTED  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -163,8 +186,6 @@ SIM_SCENARIOS = ("steady", "diurnal", "node-churn", "straggler-storm",
 SIM_HORIZON_S, SIM_SEED, SIM_STANDBY = 6.0, 0, 2
 SIM_FLEET = "fleet-64"
 SIM_CELLS_FLEET, SIM_CELLS, SIM_CELLS_HORIZON_S = "fleet-1024", 16, 0.05
-KERNELS = {"flash_attention": fa_k, "decode_attention": dec_k, "ssm_scan": ssm_k,
-           "rwkv6_wkv": wkv_k, "flash_attention_bwd": fab_k}
 
 
 def card_line() -> str:
@@ -261,7 +282,7 @@ def reset_counts():
     to 0."""
     for mod in KERNELS.values():
         mod.launches = 0
-    for mod in (fa_k, ssm_k, fab_k):
+    for mod in ROUTED.values():
         mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
 
 
@@ -2019,10 +2040,379 @@ def sim_phase(card):
     return counts
 
 
+# ----------------------------------------------------------------------
+# the dryrun phase: launch.dryrun.run_cell with the kernels on, at full
+# published width, on the cells that carry each kernel's new shapes
+DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k"), ("phi4-mini-3.8b", "prefill_32k"),
+                ("phi4-mini-3.8b", "decode_32k"), ("gemma2-2b", "prefill_32k"),
+                ("qwen3-32b", "decode_32k"), ("rwkv6-1.6b", "prefill_32k"),
+                ("rwkv6-1.6b", "long_500k"))
+# the FLOP check: kernels-off count against kernels-on count plus the
+# kernels' analytic FLOPs, on phi4-mini cut to 2 layers. Both counts are
+# sums of integer products, so the two sides agree to rounding only.
+DRYRUN_FLOPS_TOL = 1e-9
+
+
+def expected_launches(cfg, kind: str, microbatches: int, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` steps of ``kind``: layers x calls.
+    Training reruns each attention forward under remat (K1 twice, K5 once a
+    layer and microbatch); prefill runs K1, K3 or K4 once a layer; decode
+    K2 once an attention layer."""
+    from repro_torch.models import transformer as tfm
+    n = {m: 0 for m in ("gqa", "mla", "mamba", "rwkv")}
+    for g in tfm.layer_plan(cfg):
+        for sl in g.pattern:
+            n[sl.mixer] += g.n_units
+    out = dict.fromkeys(KERNELS, 0)
+    if kind == "train":
+        out["flash_attention"] = 2 * n["gqa"] * microbatches * steps
+        out["flash_attention_bwd"] = n["gqa"] * microbatches * steps
+    elif kind == "prefill":
+        out["flash_attention"] = n["gqa"] * steps
+        out["ssm_scan"] = n["mamba"] * steps
+        out["rwkv6_wkv"] = n["rwkv"] * steps
+    else:
+        out["decode_attention"] = n["gqa"] * steps
+    return out
+
+
+def dryrun_flops_check(device):
+    """Counted FLOPs with the kernels off against the count with them on
+    plus their analytic FLOPs, on phi4-mini cut to 2 layers at its full
+    width: prefill (b 2, S 2048), where the einsum path multiplies the whole
+    S x S square (masked) and the kernel its causal half, so the difference
+    is twice the flash term; decode (b 8 over 32768 slots, all filled),
+    where the einsum path reads every slot as K2 does."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    cfg = dr.reduced_config(get_config("phi4-mini-3.8b"), 2)
+    out = {}
+    for kind, b, s, factor in (("prefill", 2, 2048, 2.0), ("decode", 8, 32768, 1.0)):
+        on = dr.measure(cfg, kind, b, s, use_kernels=True, device=device, timed=False)
+        off = dr.measure(cfg, kind, b, s, use_kernels=False, device=device, timed=False)
+        kf = dr.kernel_flops(cfg, kind, b, s)
+        added = factor * (kf["flash"] + kf["decode"])
+        rel = abs(off["flops"] - (on["flops"] + added)) / off["flops"]
+        print(f"dryrun flops check, {kind} b {b} S {s}, 2 layers: kernels off "
+              f"{off['flops']:.6e}, on {on['flops']:.6e} + {factor:g} x kernels' "
+              f"{added / factor:.6e}; relative difference {rel:.2e} (limit "
+              f"{DRYRUN_FLOPS_TOL:g})")
+        assert rel <= DRYRUN_FLOPS_TOL, (kind, rel)
+        out[kind] = rel
+    return out
+
+
+# the kernel entries the model reaches through ``ops``, by module
+DRYRUN_ENTRIES = ((fa_k, "flash_attention"), (fab_k, "flash_attention_bwd"),
+                  (dec_k, "decode_attention"), (wkv_k, "rwkv6_wkv"),
+                  (wkv_k, "rwkv6_wkv_model"), (ssm_k, "ssm_scan"))
+# a plain attention call is run in slices whose fp32 score matrix stays
+# within this many bytes (the backward holds about six of them at once)
+PLAIN_SLICE_BYTES = 1 << 30
+
+
+def _signature(x):
+    """A tensor's shape, strides, dtype and storage offset modulo 256 bytes
+    (the alignment of its address: the allocator's blocks start on 256-byte
+    boundaries); any other argument itself."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), x.stride(),
+                x.storage_offset() % (256 // x.element_size()), x.dtype)
+    return x
+
+
+@contextlib.contextmanager
+def recording_calls(calls):
+    """Each entry of ``DRYRUN_ENTRIES`` wrapped to count its call's signature
+    in ``calls`` (a Counter) before it calls through; put back on exit."""
+    saved = []
+    for mod, name in DRYRUN_ENTRIES:
+        fn = getattr(mod, name)
+
+        def rec(*args, _fn=fn, _name=name, **kw):
+            calls[(_name, tuple(map(_signature, args)),
+                   tuple(sorted((k, _signature(v)) for k, v in kw.items())))] += 1
+            return _fn(*args, **kw)
+        saved.append((mod, name, fn))
+        setattr(mod, name, rec)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _laid_out(sig, values):
+    """``values`` copied into a tensor of the recorded shape, strides,
+    storage offset and dtype."""
+    _, shape, stride, offset, dtype = sig
+    assert all(st or n == 1 for n, st in zip(shape, stride)), f"a broadcast view: {sig}"
+    size = offset + 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    t = torch.empty(size, dtype=dtype, device=values.device).as_strided(shape, stride, offset)
+    return t.copy_(values)
+
+
+def _normal(gen, sig, scale=1.0):
+    _, shape, _, _, dtype = sig
+    x = torch.randn(shape, generator=gen, device=gen.device) * scale
+    return _laid_out(sig, x.to(dtype))
+
+
+def _plain_in_slices(fn, args, kinds, budget=PLAIN_SLICE_BYTES, **kw):
+    """``fn(*args, **kw)``, an attention plain version, run over each batch
+    row and over groups of kv heads small enough that a group's fp32 score
+    matrix stays within ``budget`` bytes; ``kinds`` says which of
+    ``args`` are indexed by query head ("q") and which by kv head ("k").
+    The pieces are joined back along both dims."""
+    q, k = args[kinds.index("q")], args[kinds.index("k")]
+    b, kvh, s = k.shape[0], k.shape[1], k.shape[2]
+    g, sq = q.shape[1] // kvh, q.shape[2]
+    step = max(1, budget // (g * sq * s * 4))
+    rows = []
+    for i in range(b):
+        parts = []
+        for j in range(0, kvh, step):
+            hi = min(j + step, kvh)
+            sl = {"q": slice(j * g, hi * g), "k": slice(j, hi)}
+            part = fn(*(a[i:i + 1, sl[c]] for a, c in zip(args, kinds)), **kw)
+            parts.append(part if isinstance(part, tuple) else (part,))
+        rows.append([torch.cat(p, dim=1) for p in zip(*parts)])
+    return [torch.cat(p, dim=0) for p in zip(*rows)]
+
+
+def _replay_flash(gen, args, kw):
+    q, k, v = (_normal(gen, a) for a in args)
+    got = fa_k.flash_attention(q, k, v, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = _plain_in_slices(fa_k.flash_attention_plain, (q, k, v), "qkk", **kw)
+    err = max(_check(f"dryrun replay flash {w}", x, y, TOL[q.dtype])
+              for w, x, y in zip(("out", "lse"), got, want))
+    return err, lambda: fa_k.flash_attention(q, k, v, **kw)
+
+
+def _replay_flash_bwd(gen, args, kw):
+    """q, k, v, dout drawn; out and lse from the forward's plain version on
+    them, laid out as the recorded ``out`` and ``lse``; delta inside, from
+    ``out``, as ``ops`` calls K5."""
+    q, k, v, dout = (_normal(gen, a) for a in args[:4])
+    fkw = {n: kw[n] for n in ("causal", "window", "softcap", "scale", "q_offset") if n in kw}
+    out, lse = _plain_in_slices(fa_k.flash_attention_plain, (q, k, v), "qkk",
+                                return_lse=True, **fkw)
+    out, lse = _laid_out(kw["out"], out), _laid_out(args[4], lse)
+    kw = {**kw, "out": out}
+    got = fab_k.flash_attention_bwd(q, k, v, dout, lse, **kw)
+    want = _plain_in_slices(fab_k.flash_attention_bwd_plain,
+                            (q, k, v, dout, lse, fab_k.delta_of(dout, out)), "qkkqqq", **fkw)
+    err = max(_check(f"dryrun replay flash_bwd {w}", x, y, BWD_TOL[q.dtype])
+              for w, x, y in zip(("dq", "dk", "dv"), got, want))
+    return err, lambda: fab_k.flash_attention_bwd(q, k, v, dout, lse, **kw)
+
+
+def _replay_decode(gen, args, kw):
+    """Every slot valid, as the dry run's caches are filled to ``S - 1``
+    before the step writes the last."""
+    q, k, v = (_normal(gen, a) for a in args[:3])
+    mask = _laid_out(args[3], torch.ones(args[3][1], dtype=torch.bool, device=gen.device))
+    err = _check("dryrun replay decode", dec_k.decode_attention(q, k, v, mask, **kw),
+                 dec_k.decode_attention_plain(q, k, v, mask, **kw), TOL[q.dtype])
+    return err, lambda: dec_k.decode_attention(q, k, v, mask, **kw)
+
+
+def _replay_wkv(entry):
+    def replay(gen, args, kw):
+        """Drawn as :func:`_wkv_inputs` draws them: small k and u, decays
+        in (0, 1)."""
+        r, v = _normal(gen, args[0]), _normal(gen, args[2])
+        k, u = _normal(gen, args[1], 0.3), _normal(gen, args[4], 0.1)
+        w = _laid_out(args[3], torch.sigmoid(torch.randn(args[3][1], generator=gen,
+                                                         device=gen.device)).to(args[3][4]))
+        fn, plain = getattr(wkv_k, entry), getattr(wkv_k, entry + "_plain")
+        got, want = fn(r, k, v, w, u), plain(r, k, v, w, u)
+        err = max(_check(f"dryrun replay {entry} {n}", x, y, WKV_TOL[r.dtype])
+                  for n, x, y in zip(("y", "s_final"), got, want))
+        return err, lambda: fn(r, k, v, w, u)
+    return replay
+
+
+REPLAYS = {"flash_attention": _replay_flash, "flash_attention_bwd": _replay_flash_bwd,
+           "decode_attention": _replay_decode, "rwkv6_wkv": _replay_wkv("rwkv6_wkv"),
+           "rwkv6_wkv_model": _replay_wkv("rwkv6_wkv_model")}
+
+
+def _describe(args, kw):
+    """A signature as text: each tensor's shape and dtype, its strides where
+    it is not contiguous and its offset where it is not 0."""
+    def one(x):
+        if not (isinstance(x, tuple) and x and x[0] == "tensor"):
+            return repr(x)
+        _, shape, stride, offset, dtype = x
+        dense = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+        return (f"{shape} {str(dtype).replace('torch.', '')}"
+                + ("" if stride == dense else f" strides {stride}")
+                + (f" offset {offset}" if offset else ""))
+    return ", ".join([one(a) for a in args] + [f"{k}={one(v)}" for k, v in kw])
+
+
+def dryrun_replay(device, timer, calls):
+    """Each distinct signature in ``calls`` replayed once on random inputs
+    laid out as recorded and held against its kernel's plain version, then
+    timed. A signature of an entry with no replay fails the phase."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    rows = []
+    for (name, args, kw), n in sorted(calls.items(), key=lambda c: (c[0][0], repr(c[0][1:]))):
+        assert name in REPLAYS, f"the dry run reached {name}, which has no replay here"
+        err, fn = REPLAYS[name](gen, args, dict(kw))
+        ms = timer(fn, warmup=1, iters=5) if device.type == "cuda" else None
+        rows.append({"kernel": name.replace("_model", ""), "entry": name,
+                     "signature": _describe(args, kw), "calls": n,
+                     "max_abs_err": err, "ms": ms})
+        print(f"  dryrun replay {name}({rows[-1]['signature']}): {n} calls; max abs err "
+              f"{err:.3e}" + ("" if ms is None else f", {ms:.4f} ms"), flush=True)
+        del fn
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def dryrun_kernel_shapes(device, timer):
+    """K1 and K2 at two shapes the dry-run cells give them for the first
+    time, against their plain versions (the serving tolerance) and timed
+    beside them and SDPA, contiguous: K1 on the ``mma`` route at gemma2-2b's prefill
+    (q (2, 8, 8192, 256), k/v (2, 4, 8192, 256) bf16, causal, soft cap 50;
+    SDPA has no soft cap and runs without it), K2 at qwen3-32b's decode
+    (q (8, 8, 8, 128), k/v (8, 32768, 8, 128) bf16, every slot valid)."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    dt = torch.bfloat16
+    rows = {}
+    b, h, kv, s, d = 2, 8, 4, 8192, 256
+    q, k, v = _flash_inputs(gen, b, h, kv, s, s, d, dt, device)
+    assert fa_k.route(dt, d) == "mma"
+    fn = lambda: fa_k.flash_attention(q, k, v, softcap=50.0)  # noqa: E731
+    err = _check("dryrun flash[d256]", fn(), fa_k.flash_attention_plain(q, k, v, softcap=50.0),
+                 TOL[dt])
+    ms = timer(fn, iters=7)
+    dev_ms, _ = device_ms(fn, iters=7)
+    plain_ms = timer(lambda: fa_k.flash_attention_plain(q, k, v, softcap=50.0), warmup=1,
+                     iters=3)
+    try:
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                     enable_gqa=True)
+        lib()
+    except (TypeError, RuntimeError):
+        ke, ve = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)  # noqa: E731
+    library_ms = timer(lib, iters=7)
+    nbytes = (2 * b * h * s * d + 2 * b * kv * s * d) * 2
+    flops = 4 * d * b * h * _visible_pairs(s, s, True, None, 0)
+    t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    rows["flash_attention"] = {
+        "shape": f"q({b},{h},{s},{d}) kv({b},{kv},{s},{d}) bf16 causal softcap 50, "
+                 f"route mma (gemma2-2b prefill)",
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library_note": "SDPA without the soft cap",
+        "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    b, kv, g, s, d = 8, 8, 8, 32768, 128
+    q = _rand(gen, (b, kv, g, d), dt, device)
+    k = _rand(gen, (b, s, kv, d), dt, device)
+    v = _rand(gen, (b, s, kv, d), dt, device)
+    mask = torch.ones((b, s), dtype=torch.bool, device=device)
+    fn = lambda: dec_k.decode_attention(q, k, v, mask)  # noqa: E731
+    err = _check("dryrun decode[g8 S 32768]", fn(),
+                 dec_k.decode_attention_plain(q, k, v, mask), TOL[dt])
+    ms = timer(fn)
+    dev_ms, _ = device_ms(fn)
+    plain_ms = timer(lambda: dec_k.decode_attention_plain(q, k, v, mask), warmup=1, iters=5)
+    ql = q.reshape(b, kv * g, 1, d)
+    kl, vl = k.transpose(1, 2), v.transpose(1, 2)
+    try:
+        lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True)  # noqa: E731
+        lib()
+    except (TypeError, RuntimeError):
+        ke, ve = (t.repeat_interleave(g, dim=1) for t in (kl, vl))
+        lib = lambda: F.scaled_dot_product_attention(ql, ke, ve)  # noqa: E731
+    library_ms = timer(lib)
+    nbytes = 2 * b * s * kv * d * 2 + 2 * b * kv * g * d * 2 + b * s
+    flops = 4 * g * d * kv * b * s
+    t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = dec_k.num_splits(b, kv, s, sms)
+    rows["decode_attention"] = {
+        "shape": f"q({b},{kv},{g},{d}) kv({b},{s},{kv},{d}) bf16, every slot valid "
+                 f"(qwen3-32b decode)", "splits": splits,
+        "cluster": dec_k.cluster_size(splits),
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
+    for name, r in rows.items():
+        print(f"  dryrun {name} at {r['shape']}: {r['ms']:.4f} ms, device "
+              f"{r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def dryrun_phase(device, args, card, timer):
+    """``launch.dryrun.run_cell`` with the kernels on for each of
+    ``DRYRUN_CELLS`` (or every cell with ``--all``): one JSON line a cell,
+    each kernel's launches held to layers x calls at the depths run, every
+    output finite; then the FLOP check, every kernel call signature of the
+    cells replayed against its plain version, and the new shapes' kernel
+    times. Returns the launch counts of the cells' runs."""
+    from repro_torch.configs import cells, get_config, get_shape
+    from repro_torch.launch import dryrun as dr
+    todo = ([(a, s) for a, s, skip in cells() if not skip] if args.all
+            else list(DRYRUN_CELLS))
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    calls = collections.Counter()
+    for arch, shape in todo:
+        reset_counts()
+        with recording_calls(calls):
+            rec = dr.run_cell(arch, shape, use_kernels=True, device=device)
+        got = {k: m.launches for k, m in KERNELS.items()}
+        routes = {k: dict(m.launches_by_route) for k, m in ROUTED.items()}
+        rec["card"] = card
+        print(json.dumps(rec), flush=True)
+        if not args.all:
+            assert rec["fits"], (arch, shape, rec["method"])
+        if not rec["fits"]:
+            continue
+        assert rec["finite"], (arch, shape)
+        cfg = get_config(arch)
+        want = dict.fromkeys(KERNELS, 0)
+        for run in rec["runs"] if rec["kernels"] == "on" else ():
+            for k, n in expected_launches(cfg.scaled(num_layers=run["num_layers"]),
+                                          get_shape(shape).kind, rec["microbatches"],
+                                          2).items():
+                want[k] += n
+        assert got == want == rec["launches"], (arch, shape, got, want)
+        if rec["kernels"] == "on":
+            rt = fa_k.route(torch.bfloat16, cfg.head_dim)
+            assert routes["flash_attention"][rt] == got["flash_attention"], routes
+        for k in total:
+            total[k] += got[k]
+        print(f"dryrun {arch} x {shape}: launches {got} = layers x calls at the depths "
+              f"run; routes {rec['launches_by_route']}")
+    reset_counts()
+    checks = dryrun_flops_check(device)
+    print(f"dryrun: {len(calls)} distinct kernel call signatures in the cells, "
+          f"replayed against the plain versions:")
+    replayed = dryrun_replay(device, timer, calls)
+    shapes = dryrun_kernel_shapes(device, timer)
+    print(f"dryrun: {len(todo)} cells, launches {total}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total, {"flops_check": checks, "replayed": replayed, "kernel_shapes": shapes}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "main", "train", "sim", "profile"),
-                    default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "main", "train", "sim", "dryrun",
+                                        "profile"), default="all")
+    ap.add_argument("--all", action="store_true",
+                    help="--phase dryrun: every cell of configs.cells(), not only DRYRUN_CELLS")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--decode-steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
@@ -2104,6 +2494,13 @@ def main(argv=None):
         paths["train"] = train_phase(device, args)
     if args.phase in ("all", "sim"):
         paths["sim"] = sim_phase(card)
+    if args.phase in ("all", "dryrun"):
+        paths["dryrun"], dryrun_extra = dryrun_phase(device, args, card, Timer(device))
+        for kd in kernels:
+            if kd["name"] in dryrun_extra["kernel_shapes"]:
+                kd["dryrun_shape"] = dryrun_extra["kernel_shapes"][kd["name"]]
+            kd["dryrun_replayed"] = [r for r in dryrun_extra["replayed"]
+                                     if r["kernel"] == kd["name"]]
     if args.phase == "all":
         # each kernel's launches on the path that carries it (K1 and K2: the
         # first trace), and on every path that ran it

@@ -26,6 +26,17 @@ from repro_torch.kernels import rwkv6_wkv as wkv_k
 from repro_torch.kernels import ssm_scan as ssm_k
 
 _FORCE_REF = False
+# each kernel's module by the name of its launch counter; ROUTED: those that
+# also count their launches by route
+KERNELS = {"flash_attention": fa_k, "decode_attention": dec_k, "ssm_scan": ssm_k,
+           "rwkv6_wkv": wkv_k, "flash_attention_bwd": fab_k}
+ROUTED = {"flash_attention": fa_k, "ssm_scan": ssm_k, "flash_attention_bwd": fab_k}
+
+
+def launch_counts():
+    """Every kernel's launch count, and its counts by route where it has routes."""
+    return {"launches": {k: m.launches for k, m in KERNELS.items()},
+            "routes": {k: dict(m.launches_by_route) for k, m in ROUTED.items()}}
 
 
 def force_ref(on: bool = True):

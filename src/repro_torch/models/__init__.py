@@ -1,4 +1,5 @@
 """Model zoo: composable PyTorch definitions for the ported architectures."""
 from repro_torch.models.model import (  # noqa: F401
-    decode_step, forward, init_cache, init_params, prefill,
+    abstract_cache, abstract_params, decode_step, forward, init_cache,
+    init_params, param_logical_axes, prefill,
 )

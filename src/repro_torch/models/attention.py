@@ -19,6 +19,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import shard_activation
 from repro_torch.models.layers import (ParamSpec, apply_rope, resolve_device,
                                        rms_norm, softcap)
 
@@ -79,6 +80,7 @@ def gqa_scores_softmax(q, k, v, mask, attn_softcap: float, scale: float):
     g = h // kv
     qg = q.reshape(b, sq, kv, g, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    scores = shard_activation(scores, ("batch", "kv_heads", "heads", "scores_seq", None))
     scores = softcap(scores, attn_softcap)
     scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)

@@ -15,13 +15,17 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import shard_activation
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (embed_tokens, lm_logits, resolve_dtype,
                                        rms_norm, sinusoidal_embedding)
 
 # re-exports for convenience
 init_params = tfm.init_params
+abstract_params = tfm.abstract_params
+param_logical_axes = tfm.param_logical_axes
 init_cache = tfm.init_cache
+abstract_cache = tfm.abstract_cache
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -69,14 +73,15 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             use_kernels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits over token positions, aux_loss);
     the aux loss (the MoE load-balance term) is 0 for dense archs."""
-    x = _embed_inputs(cfg, params, tokens, embeds)
+    x = shard_activation(_embed_inputs(cfg, params, tokens, embeds),
+                         ("batch", "seq", None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _, aux = _backbone(cfg, params, x, positions, None, None,
                           mode="dense", use_kernels=use_kernels)
     if cfg.frontend_stub:   # logits only over the token region
         x = x[:, embeds.shape[1]:]
     logits = lm_logits(cfg, params["embed"], x)
-    return logits, aux
+    return shard_activation(logits, ("batch", "seq", "vocab")), aux
 
 
 def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -117,14 +122,16 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     "aux"[, "mtp"]}), as the JAX package's ``loss_fn``."""
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
-    x = _embed_inputs(cfg, params, tokens, embeds)
+    x = shard_activation(_embed_inputs(cfg, params, tokens, embeds),
+                         ("batch", "seq", None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _, aux = _backbone(cfg, params, x, positions, None, None, mode="dense",
                           use_kernels=use_kernels, remat=remat,
                           remat_policy=remat_policy)
     if cfg.frontend_stub:
         x = x[:, embeds.shape[1]:]
-    logits = lm_logits(cfg, params["embed"], x)
+    logits = shard_activation(lm_logits(cfg, params["embed"], x),
+                              ("batch", "seq", "vocab"))
 
     targets = tokens[:, 1:]
     mask = batch.get("loss_mask")
@@ -149,7 +156,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     """Process the prompt; returns (last-position logits, raw seq-length
     caches stacked (L, B, S, KV, D) per group and sublayer). The engine pads
     these into max_len decode caches."""
-    x = _embed_inputs(cfg, params, tokens, embeds)
+    x = shard_activation(_embed_inputs(cfg, params, tokens, embeds),
+                         ("batch", "seq", None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, caches, _ = _backbone(cfg, params, x, positions, None, None,
                              mode="prefill", use_kernels=use_kernels)
@@ -167,6 +175,7 @@ def decode_step(cfg: ModelConfig, params, caches, lengths: torch.Tensor,
     x = embed_tokens(cfg, params["embed"], tokens[:, None], _dtype(cfg))
     if cfg.pos_kind == "sinusoidal":
         x = x + sinusoidal_embedding(lengths[:, None], cfg.d_model).to(x.dtype)
+    x = shard_activation(x, ("batch", None, None))
     positions = lengths[:, None]
     x, caches, _ = _backbone(cfg, params, x, positions, caches, lengths,
                              mode="decode", use_kernels=use_kernels)

@@ -9,7 +9,7 @@ renormalised gates.
 
 Covers mixtral (8e top-2), jamba (16e top-2, every other layer) and the MoE
 layers of deepseek-v3 (1 shared + 256 routed top-8, router_scale). One
-device: there is no expert sharding.
+device: there is no expert sharding (``shard_activation`` places nothing).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import shard_activation
 from repro_torch.models.layers import ParamSpec, ParamTree
 
 CAPACITY_FACTOR = 1.25
@@ -51,11 +52,6 @@ def moe_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
             "ws_down": ParamSpec((fs, d), ("d_ff", "d_model")),
         })
     return specs
-
-
-def shard_activation(x: torch.Tensor, dims) -> torch.Tensor:
-    """One device: activations are not sharded."""
-    return x
 
 
 def _topk(probs: torch.Tensor, k: int):

@@ -24,6 +24,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import shard_activation
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -170,6 +171,37 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | int = 0,
     return out
 
 
+def _map_specs(cfg: ModelConfig, fn):
+    """``fn(spec, n_units)`` on every ParamSpec of the model's spec tree, in
+    the parameter tree's shape; ``n_units`` is the group's unit count for a
+    stacked leaf, None for the rest (embedding, final norm, MTP head)."""
+    plan = {g.name: g.n_units for g in layer_plan(cfg)}
+
+    def walk(sub, stack):
+        if isinstance(sub, ParamSpec):
+            return fn(sub, stack)
+        return {k: walk(v, stack) for k, v in sub.items()}
+    return {name: walk(sub, plan.get(name))
+            for name, sub in model_param_specs(cfg).items()}
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32):
+    """The parameter tree's shapes and dtype as tensors on the ``meta``
+    device (no memory): the counterpart of the JAX package's tree of
+    ``ShapeDtypeStruct``."""
+    dtype = resolve_dtype(dtype)
+    return _map_specs(cfg, lambda s, n: torch.empty(
+        tuple(s.shape) if n is None else (n,) + tuple(s.shape),
+        dtype=dtype, device="meta"))
+
+
+def param_logical_axes(cfg: ModelConfig):
+    """Logical dim names mirroring the param tree (stacked leaves get
+    ``"layers"`` first)."""
+    return _map_specs(cfg, lambda s, n: tuple(s.dims) if n is None
+                      else ("layers",) + tuple(s.dims))
+
+
 # ----------------------------------------------------------------------
 # Sublayer application
 def _norm(cfg, scale, x):
@@ -241,7 +273,7 @@ def mlp_half_apply(cfg: ModelConfig, sl: SubLayer, p, x, mixer_out, *, mode: str
     """The rest of a (non-RWKV) sublayer: the mixer's residual, then the
     dense or MoE MLP with its residual. Returns (x, aux_router_logits |
     None)."""
-    x = x + mixer_out
+    x = shard_activation(x + mixer_out, ("batch", "seq", None))
     aux = None
     if sl.mlp == "dense":
         h = _norm(cfg, p["norm_mlp"], x)
@@ -254,7 +286,7 @@ def mlp_half_apply(cfg: ModelConfig, sl: SubLayer, p, x, mixer_out, *, mode: str
         if mode == "dense":  # router logits for the aux loss
             aux = h.reshape(-1, cfg.d_model) @ p["moe"]["w_router"].to(h.dtype)
         x = x + moe_mod.moe_apply(cfg, p["moe"], h)
-    return x, aux
+    return shard_activation(x, ("batch", "seq", None)), aux
 
 
 def init_sublayer_cache(cfg: ModelConfig, sl: SubLayer, batch: int,
@@ -285,6 +317,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 *(t.new_zeros((g.n_units,) + tuple(t.shape)) for t in one))
         out[g.name] = unit
     return out
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16):
+    """The cache tree's shapes and dtypes on the ``meta`` device."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
 
 
 # ----------------------------------------------------------------------

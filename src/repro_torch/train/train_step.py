@@ -44,20 +44,12 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig,
 def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
     """The train state's shapes and dtypes as tensors on the ``meta`` device
     (no memory): a restore target."""
-    plan = {g.name: g.n_units for g in tfm.layer_plan(cfg)}
     mdt = opt_lib._moment_dtype(tcfg.opt)
-
-    def make(spec, stack, dtype):
-        if isinstance(spec, dict):
-            return {k: make(v, stack, dtype) for k, v in spec.items()}
-        shape = tuple(spec.shape) if stack is None else (stack,) + tuple(spec.shape)
-        return torch.empty(shape, dtype=dtype, device="meta")
-
-    specs = tfm.model_param_specs(cfg)
-    tree = lambda dt: {n: make(sub, plan.get(n), dt) for n, sub in specs.items()}  # noqa: E731
-    return TrainState(params=tree(torch.float32), opt=opt_lib.OptState(
-        step=torch.empty((), dtype=torch.int32, device="meta"),
-        mu=tree(mdt), nu=tree(mdt)))
+    return TrainState(params=model_lib.abstract_params(cfg, torch.float32),
+                      opt=opt_lib.OptState(
+                          step=torch.empty((), dtype=torch.int32, device="meta"),
+                          mu=model_lib.abstract_params(cfg, mdt),
+                          nu=model_lib.abstract_params(cfg, mdt)))
 
 
 def _zeros_like_tree(tree):

@@ -72,7 +72,10 @@ def test_modules_found():
                      "repro_torch.analysis.checkers.det004_frozen",
                      "repro_torch.analysis.checkers.det005_rng",
                      "repro_torch.analysis.checkers.det006_tiebreak",
-                     "repro_torch.launch.sim"):
+                     "repro_torch.launch.sim",
+                     "repro_torch.distributed.ctx", "repro_torch.distributed.sharding",
+                     "repro_torch.roofline.analysis", "repro_torch.launch.dryrun",
+                     "repro_torch.launch.inputs", "repro_torch.launch.mesh"):
         assert expected in MODULES
 
 
@@ -98,11 +101,58 @@ def test_host_stack_imports_no_framework():
     assert proc.stdout.strip() == "BAD []"
 
 
+EXAMPLES = ("quickstart_torch", "serve_cluster_torch", "train_small_torch",
+            "online_sim_torch")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_import_neither_jax_nor_repro(name):
+    """Loading a port example (its ``main`` does not run) pulls in no JAX
+    and no module of the JAX package; ``quickstart_torch`` and
+    ``online_sim_torch`` are host code and pull in no torch either."""
+    banned = "('jax', 'jaxlib', 'repro', 'triton'" + (
+        ", 'torch')" if name in ("quickstart_torch", "online_sim_torch") else ")")
+    code = f"""
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location('ex', 'examples/{name}.py')
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules if m.split('.')[0] in {banned})
+print('BAD', bad)
+sys.exit(1 if bad else 0)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "BAD []"
+
+
+def test_dryrun_and_meshes_follow_the_device_rule():
+    """Without a card the dry run, its measurement and the local mesh raise
+    unless told ``device="cpu"``; the production and abstract meshes are
+    plain axis maps and need no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import dryrun, mesh
+    cfg = get_smoke_config("phi4-mini-3.8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_local_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.measure(cfg, "decode", 1, 8, use_kernels=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.run_cell("phi4-mini-3.8b", "decode_32k")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--arch", "phi4-mini-3.8b", "--shape", "decode_32k"])
+    with pytest.raises(ValueError, match="capacity"):
+        dryrun.run_cell("phi4-mini-3.8b", "decode_32k", device="cpu")
+    assert mesh.make_local_mesh(device="cpu").size == 1
+    assert mesh.make_production_mesh().size == 256
+
+
 def test_sources_do_not_name_jax():
     """Belt and braces for lazy imports inside functions."""
     import re
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "examples", f"{n}.py") for n in EXAMPLES]
     for base, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
