@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py            # everything, as below
-    python3 chip_smoke.py --phase kernels     # or: main, train, sim, dryrun, profile [--arch ...]
+    python3 chip_smoke.py --phase kernels     # or: main, archs, train, sim, dryrun, profile
     python3 chip_smoke.py --phase dryrun --all     # every dry-run cell
-    python3 chip_smoke.py --phase profile --arch deepseek-v3-671b
+    python3 chip_smoke.py --phase profile --arch deepseek-v3-671b   # or any served arch
 
 Phases, each of which fails the run with a non-zero exit code:
 
@@ -50,16 +50,41 @@ Phases, each of which fails the run with a non-zero exit code:
    head), cut to its 3 dense layers and one MoE layer, two engines resident
    where they fit (MLA has no kernel, in the JAX package either, so the
    trace must launch none). Every launch count is set to 0 just before a
-   trace and checked just after, and every flash-attention launch of a trace (and every
-   forward and backward launch of the train run) must have gone through the
-   ``wgmma`` route; the prefill
+   trace and checked just after, and every flash-attention launch of a trace
+   must have gone through the route of the model's head dim (``wgmma`` at
+   D 128 on these four; every forward and backward launch of the train run
+   too); the prefill
    logits of one level are then held against the same engine with the
    kernels off (jamba: its first Mamba layer in fp32 copies; the whole
    model's bf16 difference is printed; deepseek: the absorbed decode
    against the dense path on fp32 copies of one MLA layer at full width,
    and one ``loss_fn`` with the MTP term). Each trace's engines are freed
    before the next, so each peak memory is its own;
-4. train: phi4-mini-3.8b at full width and depth through
+4. archs: the six archs that had run only as dry-run steps, at every
+   published width, bf16, random weights, with the main phase's settings:
+   request traces through ``launch.serve`` of gemma2-2b (K1 on ``mma`` at D
+   256, soft caps 50 and 30, local/global pairs; all six levels resident),
+   gemma2-27b, qwen3-32b (K2 at G 8) and mixtral-8x7b cut to 16 layers with
+   all 8 experts (one engine resident; each trace's memory reckoned first),
+   then llava-next-mistral-7b (2880 patch positions, ``max_len`` 4096) and
+   musicgen-medium through the engine of each of their six levels with
+   stub-frontend embeddings ahead of the prompt (neither package's ``serve``
+   passes such embeddings). Launch counts are held to layers x prefills /
+   steps and K1's route to the head dim's; after each model, kernels on
+   against off on its level-0 weights: the bf16 prefill logits printed, fp32
+   copies of its leading layer units (up to 40 GB) held to the end-to-end
+   tolerance, where K1 runs its ``fma`` route and K2 its fp32 instance
+   (mixtral: its first attention layer; expert-pair flips printed, and the
+   bf16 logits again with the experts pinned to the einsum path's); then
+   gemma2-2b's sliding-window ring past its wrap (prompt 4608, window 4096,
+   16 decode steps into 5120 slots; in bf16 every K1 and K2 call held
+   against its plain version on the same inputs and the logits printed; on
+   fp32 copies the logits held, every step, and the last step against a
+   prefill); last, every bf16 kernel call of the traces and of the
+   stub-frontend runs, recorded by signature, replayed once a signature
+   against its plain version at the kernels phase's tolerances and timed,
+   as the dryrun phase replays its cells' calls;
+5. train: phi4-mini-3.8b at full width and depth through
    ``repro_torch.launch.train.run_training`` (fp32 master weights, bf16
    compute, remat, batch 8 x 512, 3 AdamW steps), every step checked for a
    finite loss and grad norm, moved parameters and its launches (K1 twice
@@ -69,7 +94,7 @@ Phases, each of which fails the run with a non-zero exit code:
    step with ``remat_policy="save_attn"`` against one with ``"nothing"``
    from the same parameters and batch (the loss bit for bit, the gradients
    to the bf16 limits, K1 and K5 launches, step time and memory of each);
-5. sim: the online simulator (``repro_torch.launch.sim``, pure host code)
+6. sim: the online simulator (``repro_torch.launch.sim``, pure host code)
    over analytic ``H100_SXM`` tables of phi4-mini-3.8b, the six scenarios of
    the golden digests x ``proportional`` x {none, full} at horizon 6 s,
    seed 0, 2 standby nodes, each run twice and held to the same digest of
@@ -80,7 +105,7 @@ Phases, each of which fails the run with a non-zero exit code:
    required to serve requests within deadline. One JSON line per case (goodput, p99, shed rate, mean
    accuracy, events/s, wall time: host times, beside the card line); every
    kernel's launch count must stay 0 across the phase;
-6. dryrun: ``repro_torch.launch.dryrun.run_cell`` with the kernels on, at
+7. dryrun: ``repro_torch.launch.dryrun.run_cell`` with the kernels on, at
    every published width, on phi4-mini-3.8b's ``train_4k``, ``prefill_32k``
    and ``decode_32k``, gemma2-2b's ``prefill_32k`` (K1's ``mma`` route at
    bf16, D 256, S up to 8192), qwen3-32b's ``decode_32k`` (K2 at G = 8 over
@@ -99,7 +124,7 @@ Phases, each of which fails the run with a non-zero exit code:
    matrix is large), timed; and K1 and K2 at gemma2-2b's and qwen3-32b's
    shapes timed beside their plain versions and SDPA. ``--phase dryrun
    --all`` runs every cell of ``configs.cells()`` instead (outside ``all``);
-7. the ``kernels`` JSON line, the card line, and the final JSON line.
+8. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
 """
@@ -175,6 +200,21 @@ JAMBA = "jamba-1.5-large-398b"
 # layers and one MoE layer with all 256 routed experts (15.80 B parameters,
 # 31.6 GB in bf16, at level 0)
 DEEPSEEK, DEEPSEEK_LAYERS = "deepseek-v3-671b", 4
+# mixtral-8x7b at every published width with all 8 experts, cut to 16 of its
+# 32 layers (47.0 GB in bf16 at level 0; the whole model is 93.4 GB)
+MIXTRAL, MIXTRAL_LAYERS = "mixtral-8x7b", 16
+# the archs phase: four traces through the gateway, (arch, max_engines); then
+# the two stub-frontend archs through the engine of each level
+ARCH_TRACES = (("gemma2-2b", None), ("gemma2-27b", 1), ("qwen3-32b", 1), (MIXTRAL, 1))
+STUB_ARCHS = ("llava-next-mistral-7b", "musicgen-medium")
+# kernels on against off in fp32: copies of as many leading layer units as
+# stay within this many bytes; the check's batch is cut so that one layer's
+# fp32 scores on the einsum path stay within EINSUM_SCORES_BYTES
+FP32_COPY_BYTES = 40e9
+EINSUM_SCORES_BYTES = 4e9
+# the sliding-window ring past its wrap, at full width: gemma2-2b (window
+# 4096) with a prompt of 4608 and 16 decode steps into 5120 slots
+RING_ARCH, RING_BATCH, RING_PROMPT, RING_MAX_LEN = "gemma2-2b", 2, 4608, 5120
 # two engines stay resident when the two largest levels and the working set
 # of a prefill fit under this (the card holds 80 GB)
 TWO_ENGINES_BYTES = 75e9
@@ -225,15 +265,45 @@ def deepseek_cut_config():
     return get_config(DEEPSEEK).scaled(num_layers=DEEPSEEK_LAYERS)
 
 
-def reduced_line(arch: str = JAMBA) -> str:
+def mixtral_cut_config():
+    """mixtral-8x7b at every published width (32 q / 8 kv heads of 128,
+    window 4096, 8 experts top-2 of width 14336, vocab 32000), cut in depth
+    to ``MIXTRAL_LAYERS`` of its 32 layers: 47.0 GB in bf16 at level 0, 40.1
+    GB at level 1 (the whole model is 93.4 GB, its level 1 79.7 GB)."""
     from repro_torch.configs import get_config
 
-    full = get_config(arch)
-    if arch == DEEPSEEK:
-        return f"reduced: num_layers {full.num_layers} -> {deepseek_cut_config().num_layers}"
-    cut = jamba_cut_config()
-    return (f"reduced: num_layers {full.num_layers} -> {cut.num_layers}, "
-            f"num_experts {full.moe.num_experts} -> {cut.moe.num_experts}")
+    return get_config(MIXTRAL).scaled(num_layers=MIXTRAL_LAYERS)
+
+
+CUT_CONFIGS = {JAMBA: jamba_cut_config, DEEPSEEK: deepseek_cut_config,
+               MIXTRAL: mixtral_cut_config}
+
+
+def arch_config(arch: str):
+    """The config this script serves for ``arch``: its cut where the whole
+    model does not fit the card, else the published one."""
+    from repro_torch.configs import get_config
+
+    return CUT_CONFIGS[arch]() if arch in CUT_CONFIGS else get_config(arch)
+
+
+def reduced_line(arch: str = JAMBA) -> str:
+    """What the cut of ``arch`` leaves out, as a ``reduced:`` line."""
+    from repro_torch.configs import get_config
+
+    full, cut = get_config(arch), arch_config(arch)
+    parts = [f"num_layers {full.num_layers} -> {cut.num_layers}"]
+    if full.moe is not None and full.moe.num_experts != cut.moe.num_experts:
+        parts.append(f"num_experts {full.moe.num_experts} -> {cut.moe.num_experts}")
+    return "reduced: " + ", ".join(parts)
+
+
+def serve_max_len(cfg, prompt_len: int, steps: int) -> int:
+    """The decode caches' length: the stub positions, the prompt and the
+    steps, rounded up to a multiple of 1024 (1024 for a 512-token prompt;
+    llava-next's 2880 patch positions make it 4096)."""
+    n = cfg.stub_embed_len + prompt_len + steps
+    return -(-n // 1024) * 1024
 
 
 def param_bytes(cfg, itemsize: int = 2) -> int:
@@ -305,6 +375,23 @@ def assert_k1_wgmma(where, n):
     """Every one of the ``n`` K1 launches counted since the last reset went
     through the ``wgmma`` route."""
     _assert_route(fa_k, K1_ROUTES, "K1", where, n, "wgmma")
+
+
+# the route every K1 launch of a bf16 run must take, by head dim: a table of
+# its own, so that a wrong change to the kernel's ``route`` fails the traces
+K1_ROUTE_BY_HEAD_DIM = {64: "wgmma", 128: "wgmma", 256: "mma"}
+
+
+def k1_route(cfg) -> str:
+    """The route every K1 launch of a bf16 run of ``cfg`` must take:
+    ``mma`` at head dim 256 (gemma2-2b), ``wgmma`` at 64 and 128."""
+    return K1_ROUTE_BY_HEAD_DIM[cfg.head_dim]
+
+
+def assert_k1_route(where, n, cfg):
+    """Every one of the ``n`` K1 launches counted since the last reset went
+    through :func:`k1_route` of ``cfg``."""
+    _assert_route(fa_k, K1_ROUTES, "K1", where, n, k1_route(cfg))
 
 
 def assert_k3_tma(where, n):
@@ -1181,10 +1268,12 @@ def _launches_per_run(cfg, steps):
 
 
 def run_trace(device, args, cfg, max_engines=None):
-    """One request trace through ``launch.serve``'s entry points at full
-    width. Every kernel's launch count is set to 0 just before it and read
-    just after, and held against the layers of the levels that ran. Returns
-    (report, counts)."""
+    """One request trace of ``cfg`` through ``launch.serve``'s entry points
+    at full width (the main phase's four, the archs phase's four). Every
+    kernel's launch count is set to 0 just before it and read just after,
+    and held against the layers of the levels that ran; every K1 launch
+    must have taken ``cfg``'s route (:func:`k1_route`). Returns (report,
+    counts)."""
     from repro_torch.core.variants import VariantPool
     from repro_torch.launch import serve
 
@@ -1201,7 +1290,7 @@ def run_trace(device, args, cfg, max_engines=None):
     wall = time.time() - t0
     counts = {name: mod.launches for name, mod in KERNELS.items()}
     if counts["flash_attention"]:
-        assert_k1_wgmma(cfg.name, counts["flash_attention"])
+        assert_k1_route(cfg.name, counts["flash_attention"], cfg)
     if counts["ssm_scan"]:
         assert_k3_tma(cfg.name, counts["ssm_scan"])
     peak = torch.cuda.max_memory_allocated()
@@ -1252,14 +1341,7 @@ def kernels_vs_einsum(device, args, engine, fp32=False):
     if fp32:
         cfg, params = cfg.scaled(dtype="float32"), _tree_float(params)
     toks = serve.make_prompts(cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
-    logits = [serve.Engine(cfg, params, serve.EngineConfig(max_len=MAX_LEN,
-                                                           use_kernels=on),
-                           device=device).prefill(toks)[0]
-              for on in (True, False)]
-    torch.cuda.synchronize()
-    assert logits[0].shape == (B, cfg.vocab_size) and torch.isfinite(logits[0]).all()
-    diff = (logits[0] - logits[1]).abs().max().item()
-    scale = logits[1].abs().max().item()
+    diff, scale = prefill_on_off(device, cfg, params, toks)
     print(f"{cfg.name}: prefill logits kernels vs einsum path, "
           f"{cfg.dtype}: max abs diff {diff:.6f} (max |logit| {scale:.3f})")
     return diff, scale
@@ -1276,6 +1358,63 @@ def _free():
     torch.cuda.empty_cache()
 
 
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def moe_prefill_on_off(device, eng, toks):
+    """Printed, not held: ``eng``'s bf16 prefill logits with the kernels on
+    and off, and the share of tokens whose expert pair at the first MoE
+    layer differs between the two paths (in bf16 a top-2 choice near a tie
+    flips on a last-bit difference upstream). As a witness of what those
+    flips carry, the kernels-on prefill again with every MoE layer's
+    experts pinned to the kernels-off path's choice (the gates taken from
+    the kernels-on router's probabilities at those experts). Returns (max
+    abs difference, max |logit|, flipped share, max abs difference pinned)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_mod
+
+    route = moe_mod.route_topk
+    chosen, path = {}, [None]   # path -> every MoE layer's experts, in call order
+
+    def hooked(c, router_logits):
+        gates, idx = route(c, router_logits)
+        if path[0] == "pinned":
+            idx = chosen["off"][len(chosen.get("pinned", ()))]
+            probs = torch.softmax(router_logits.float(), dim=-1).gather(-1, idx)
+            gates = probs / probs.sum(dim=-1, keepdim=True) * c.moe.router_scale
+        chosen.setdefault(path[0], []).append(idx)
+        return gates, idx
+
+    logits = {}
+    moe_mod.route_topk = hooked
+    try:
+        for p in ("off", "on", "pinned"):
+            path[0] = p
+            logits[p] = serve.Engine(eng.cfg, eng.params,
+                                     serve.EngineConfig(max_len=eng.ecfg.max_len,
+                                                        use_kernels=p != "off"),
+                                     device=device).prefill(toks)[0]
+    finally:
+        moe_mod.route_topk = route
+    _sync(device)
+    assert all(torch.isfinite(x).all() for x in logits.values())
+    assert len(chosen["pinned"]) == len(chosen["off"]) == len(chosen["on"]) > 0, {
+        p: len(v) for p, v in chosen.items()}
+    diff = (logits["on"] - logits["off"]).abs().max().item()
+    pinned = (logits["pinned"] - logits["off"]).abs().max().item()
+    scale = logits["off"].abs().max().item()
+    first = [chosen[p][0].sort(dim=-1).values for p in ("on", "off")]
+    flipped = (first[0] != first[1]).any(dim=-1).float().mean().item()
+    print(f"{eng.cfg.name}: bf16 prefill logits kernels vs einsum path, level 0: max abs "
+          f"diff {diff:.6f} (max |logit| {scale:.3f}); expert pair differs at the first "
+          f"MoE layer for {flipped:.4%} of {first[0].shape[0]} tokens; with the kernels-on "
+          f"path's experts pinned to the einsum path's at all {len(chosen['off'])} MoE "
+          f"layers: max abs diff {pinned:.6f} (printed, not held)")
+    return diff, scale, flipped, pinned
+
+
 def jamba_checks(device, args, cfg):
     """Kernels on against off for the cut jamba, on the level-0 engine
     rebuilt from its seed (the trace's bounded pool has dropped it).
@@ -1288,7 +1427,6 @@ def jamba_checks(device, args, cfg):
     kernel on and off, to LOGITS_TOL_FP32 relative to the largest output
     above 1."""
     from repro_torch.launch import serve
-    from repro_torch.models import moe as moe_mod
     from repro_torch.models import ssm
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import embed_tokens
@@ -1296,33 +1434,7 @@ def jamba_checks(device, args, cfg):
     eng = serve.EnginePool(cfg, device=device, dtype="bfloat16", max_len=MAX_LEN,
                            seed=args.seed, max_engines=1).engine_for(0)
     toks = serve.make_prompts(eng.cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
-    route = moe_mod.route_topk
-    first, current = {}, [None]
-
-    def recording(c, router_logits):   # keeps the first MoE layer's choice
-        gates, idx = route(c, router_logits)
-        first.setdefault(current[0], idx.sort(dim=-1).values)
-        return gates, idx
-
-    logits = []
-    moe_mod.route_topk = recording
-    try:
-        for on in (True, False):
-            current[0] = on
-            logits.append(serve.Engine(eng.cfg, eng.params,
-                                       serve.EngineConfig(max_len=MAX_LEN, use_kernels=on),
-                                       device=device).prefill(toks)[0])
-    finally:
-        moe_mod.route_topk = route
-    torch.cuda.synchronize()
-    assert all(torch.isfinite(x).all() for x in logits)
-    diff = (logits[0] - logits[1]).abs().max().item()
-    scale = logits[1].abs().max().item()
-    flipped = (first[True] != first[False]).any(dim=-1).float().mean().item()
-    print(f"{cfg.name}: bf16 prefill logits kernels vs einsum path, level 0: max abs "
-          f"diff {diff:.6f} (max |logit| {scale:.3f}); expert pair differs at the first "
-          f"MoE layer for {flipped:.4%} of {first[True].shape[0]} tokens (printed, not held)")
-    del logits, first
+    moe_prefill_on_off(device, eng, toks)
 
     # fp32 copies of the first Mamba layer and the hidden state it sees
     g = tfm.layer_plan(cfg)[0]
@@ -1459,8 +1571,10 @@ def deepseek_trace(device, args):
 
 
 def main_path(device, args):
-    """The four traces, one after the other. Returns the launch counts of
-    each kernel, read right after each trace."""
+    """The main phase's four traces, one after the other: phi4-mini-3.8b,
+    rwkv6-1.6b, the cut jamba and the cut deepseek (the archs phase serves
+    the other six). Returns the launch counts of each kernel, read right
+    after each trace."""
     from repro_torch.configs import get_config
 
     out = {}
@@ -1509,6 +1623,437 @@ def main_path(device, args):
 
     out["deepseek"] = deepseek_trace(device, args)
     return out
+
+
+# ----------------------------------------------------------------------
+# the archs phase: the six archs that had run only as dry-run steps, served
+def reckon_fit(device, cfg, max_len, max_engines):
+    """Before a trace: ``launch.dryrun.reckon_footprint`` of its largest
+    level, kernels on, for a prefill (batch B x the stub positions and the
+    prompt) and for a decode step (B x ``max_len`` slots), the larger of the
+    two, plus the parameters of the other levels the trace keeps resident
+    (the ``max_engines`` largest; all six without a bound); printed and held
+    against the card's free memory. Nothing catches an out-of-memory error,
+    so a trace that would not fit fails here, before it builds anything.
+    Returns the reckoned bytes."""
+    from repro_torch.core.variants import VariantPool
+    from repro_torch.launch import dryrun as dr
+
+    levels = sorted((v.config for v in VariantPool(cfg).variants), key=param_bytes,
+                    reverse=True)
+    others = sum(param_bytes(c) for c in levels[1:max_engines or len(levels)])
+    step = {kind: dr.reckon_footprint(levels[0], kind, B, seq, kernels=True)
+            for kind, seq in (("prefill", cfg.stub_embed_len + PROMPT), ("decode", max_len))}
+    total = max(step.values()) + others
+    free = torch.cuda.mem_get_info(device)[0] if device.type == "cuda" else None
+    print(f"{cfg.name}: parameters by level "
+          + ", ".join(f"{param_bytes(v.config) / 1e9:.1f}" for v in VariantPool(cfg).variants)
+          + f" GB in bf16; max_engines={max_engines}; reckoned (launch.dryrun."
+          f"reckon_footprint, the largest level, kernels on): prefill {step['prefill'] / 1e9:.1f}"
+          f" GB, decode over {max_len} slots {step['decode'] / 1e9:.1f} GB; + the other "
+          f"resident levels' parameters {others / 1e9:.1f} GB = {total / 1e9:.1f} GB"
+          + ("" if free is None else f" of {free / 1e9:.1f} GB free"))
+    assert free is None or total <= free, f"{cfg.name}: {total} bytes reckoned, {free} free"
+    return total
+
+
+def arch_inputs(cfg, level, seed, device, batch=B, prompt_len=PROMPT):
+    """One engine batch of a level: ``batch`` prompts of ``prompt_len``
+    tokens from ``serve.make_prompts``, and for a stub-frontend arch its
+    precomputed embeddings ``(batch, stub_embed_len, d_model)``, drawn in
+    bf16 from a generator seeded with ``seed`` and the level (None
+    otherwise)."""
+    from repro_torch.launch import serve
+
+    toks = serve.make_prompts(cfg.vocab_size, batch, prompt_len, seed=seed + level,
+                              device=device)
+    if not cfg.frontend_stub:
+        return toks, None
+    gen = torch.Generator(device=device).manual_seed(1000 * seed + level)
+    return toks, torch.randn((batch, cfg.stub_embed_len, cfg.d_model), generator=gen,
+                             device=device, dtype=torch.bfloat16)
+
+
+def prefill_on_off(device, cfg, params, toks, embeds=None, max_len=MAX_LEN):
+    """Prefill logits of ``cfg`` / ``params`` through the engine with
+    ``use_kernels`` on and off. Returns (max abs difference, max |logit| of
+    the kernels-off path)."""
+    from repro_torch.launch import serve
+
+    logits = [serve.Engine(cfg, params, serve.EngineConfig(max_len=max_len, use_kernels=on),
+                           device=device).prefill(toks, embeds)[0]
+              for on in (True, False)]
+    _sync(device)
+    assert logits[0].shape == (toks.shape[0], cfg.vocab_size)
+    assert all(torch.isfinite(x).all() for x in logits)
+    return (logits[0] - logits[1]).abs().max().item(), logits[1].abs().max().item()
+
+
+def leading_fp32(cfg, params, budget=FP32_COPY_BYTES):
+    """fp32 copies of the embedding, the final norm and as many leading
+    layer units of ``params`` (a model of ``cfg`` with one stacked group) as
+    stay within ``budget`` bytes together; a gemma2 unit is its local and
+    global pair. ``params`` is emptied as the copies are made, leaf by leaf,
+    so that the bf16 model and its fp32 copy are never both whole on the
+    card. Returns (the fp32 config of those units, their parameters, units
+    copied, units in the model)."""
+    from repro_torch.models import transformer as tfm
+
+    (g,) = tfm.layer_plan(cfg)
+
+    def numel(t):
+        return sum(numel(v) for v in t.values()) if isinstance(t, dict) else t.numel()
+
+    per_unit = 4 * numel(params[g.name]) // g.n_units
+    rest = 4 * sum(numel(v) for k, v in params.items() if k != g.name)
+    n = min(g.n_units, int((budget - rest) // per_unit))
+    assert n >= 1, f"{cfg.name}: not one layer unit fits {budget} bytes in fp32"
+
+    def take(tree, stacked):
+        out = {}
+        for k in list(tree):
+            v = tree.pop(k)
+            out[k] = take(v, stacked) if isinstance(v, dict) else (
+                v[:n] if stacked else v).float()
+        return out
+
+    p32 = {k: take(params[k], k == g.name) if isinstance(params[k], dict)
+           else params.pop(k).float() for k in list(params)}
+    params.clear()
+    cfg32 = cfg.scaled(num_layers=n * len(g.pattern), dtype="float32")
+    assert [(x.name, x.n_units) for x in tfm.layer_plan(cfg32)] == [(g.name, n)]
+    return cfg32, p32, n, g.n_units
+
+
+def first_attention_fp32(device, eng, toks):
+    """A MoE model's first attention layer at full width on fp32 copies of
+    its leaves and the real hidden state that reaches it, with the kernel on
+    and off. Returns (max abs difference, max |output| of the kernels-off
+    path)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens, resolve_dtype
+
+    cfg = eng.cfg
+    g = tfm.layer_plan(cfg)[0]
+    i = next(k for k, sl in enumerate(g.pattern) if sl.mixer == "gqa")
+    sub = eng.params[g.name][f"sub{i}"]
+    p32 = {k: v[0].float() for k, v in sub["attn"].items()}
+    cfg32 = cfg.scaled(dtype="float32")
+    with torch.inference_mode():
+        x = embed_tokens(cfg, eng.params["embed"], toks, resolve_dtype(cfg.dtype))
+        h = tfm._norm(cfg, sub["norm_mixer"][0], x).float()
+        pos = torch.arange(h.shape[1], device=h.device)[None]
+        outs = [attn.gqa_attention_dense(cfg32, p32, h, pos, is_global=g.pattern[i].is_global,
+                                         use_kernel=on)[0] for on in (True, False)]
+    _sync(device)
+    assert all(torch.isfinite(o).all() for o in outs)
+    diff, scale = (outs[0] - outs[1]).abs().max().item(), outs[1].abs().max().item()
+    nbytes = sum(v.numel() * 4 for v in p32.values())
+    print(f"{cfg.name}: fp32 copies of layer {i}'s attention ({nbytes / 1e9:.2f} GB, window "
+          f"{attn.layer_window(cfg, g.pattern[i].is_global)}), kernel on / off: output max "
+          f"abs diff {diff:.3e} (max |out| {scale:.3f})")
+    return diff, scale
+
+
+def arch_checks(device, args, cfg, max_len=MAX_LEN, budget=FP32_COPY_BYTES,
+                batch=B, prompt_len=PROMPT):
+    """Kernels on against off for one model of the archs phase, on its
+    level-0 engine rebuilt from its seed (the trace's pool is freed first:
+    two copies of qwen3-32b do not fit).
+
+    * Printed: the whole bf16 model's prefill logits (a MoE model: and the
+      share of tokens whose expert pair flips at its first MoE layer, and
+      the logits with the experts pinned, :func:`moe_prefill_on_off`).
+    * Held to LOGITS_TOL_FP32 relative to the largest value above 1 (in
+      fp32, K1 runs its ``fma`` route and K2 its fp32 instance; the bf16
+      routes' calls are held by the phase's replay): a dense
+      model's prefill logits on fp32 copies of as many leading layer units as
+      stay within ``budget`` bytes (:func:`leading_fp32`; the whole of
+      gemma2-2b, llava-next and musicgen), at a batch cut so that one layer's
+      fp32 scores on the einsum path stay within EINSUM_SCORES_BYTES; a MoE
+      model's first attention layer (:func:`first_attention_fp32`). Only
+      prefill is held for a MoE model: the capacity rule drops tokens by
+      sequence length, so its decode logits need not equal the forward's.
+
+    Returns the figures."""
+    from repro_torch.launch import serve
+    from repro_torch.train import optimizer as opt_lib
+
+    eng = serve.EnginePool(cfg, device=device, dtype="bfloat16", max_len=max_len,
+                           seed=args.seed, max_engines=1).engine_for(0)
+    toks, embeds = arch_inputs(eng.cfg, 0, args.seed, device, batch, prompt_len)
+    out = {}
+    if cfg.moe is not None:
+        assert embeds is None
+        (out["bf16_diff"], out["bf16_scale"], out["flipped"],
+         out["bf16_diff_pinned"]) = moe_prefill_on_off(device, eng, toks)
+        out["fp32_diff"], out["fp32_scale"] = first_attention_fp32(device, eng, toks)
+        held = "first attention layer's output"
+        del eng
+    else:
+        out["bf16_diff"], out["bf16_scale"] = prefill_on_off(
+            device, eng.cfg, eng.params, toks, embeds, max_len)
+        print(f"{cfg.name}: bf16 prefill logits kernels vs einsum path, level 0, the whole "
+              f"model: max abs diff {out['bf16_diff']:.6f} (max |logit| "
+              f"{out['bf16_scale']:.3f}) (printed, not held)")
+        cfg32, p32, n, units = leading_fp32(eng.cfg, eng.params, budget)
+        del eng
+        _free()
+        seq = cfg.stub_embed_len + prompt_len
+        b = max(1, min(batch, int(EINSUM_SCORES_BYTES // (cfg.num_heads * seq * seq * 4))))
+        out["fp32_units"], out["fp32_batch"] = n, b
+        out["fp32_diff"], out["fp32_scale"] = prefill_on_off(
+            device, cfg32, p32, toks[:b], None if embeds is None else embeds[:b], max_len)
+        nbytes = sum(t.numel() * 4 for t in opt_lib._leaves(p32))
+        held = "prefill logits"
+        print(f"{cfg.name}: fp32 copies of {n} of {units} layer units ({cfg32.num_layers} "
+              f"layers, {nbytes / 1e9:.2f} GB), batch {b} x {seq}, kernels on / off: "
+              f"prefill logits max abs diff {out['fp32_diff']:.3e} (max |logit| "
+              f"{out['fp32_scale']:.3f})")
+        del p32
+    tol = LOGITS_TOL_FP32 * max(1.0, out["fp32_scale"])
+    assert out["fp32_diff"] <= tol, (
+        f"{cfg.name}: {held}, kernels on/off in fp32: {out['fp32_diff']} > {tol}")
+    _free()
+    return out
+
+
+def stub_trace(device, args, cfg, batch=B, prompt_len=PROMPT, calls=None):
+    """A stub-frontend arch (llava-next, musicgen) through
+    ``EnginePool(...).engine_for(level).generate(tokens, steps, embeds=...)``
+    at each of the six levels of ``VariantPool(cfg)``, one engine resident
+    at a time, with precomputed frontend embeddings (:func:`arch_inputs`)
+    ahead of the prompt. These two do not go through the gateway: neither
+    package's ``serve`` passes frontend embeddings (its shares call
+    ``Engine.generate(tokens, ...)``), so a trace would stop at the model's
+    "needs stub frontend embeddings". Each level's tokens, logits and
+    launches are held as ``run_trace`` holds a share's; the prefill counts
+    the stub positions. The kernel calls are counted at the kernel entries
+    (``recording_calls``; the CPU runs the plain versions, which launch
+    nothing) and on the card by the kernels' own counts too, which must
+    agree; the recorded calls are added to ``calls`` (a Counter) where one
+    is given. Returns the counts."""
+    from repro_torch.launch import serve
+
+    steps = args.decode_steps
+    pool = serve.EnginePool(cfg, device=device, dtype="bfloat16",
+                            max_len=serve_max_len(cfg, prompt_len, steps), seed=args.seed,
+                            max_engines=1)
+    cuda = device.type == "cuda"
+    want, rows, mine = dict.fromkeys(KERNELS, 0), [], collections.Counter()
+    reset_counts()
+    t0 = time.time()
+    with recording_calls(mine):
+        for level in range(len(pool.pool)):
+            eng = pool.engine_for(level)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            toks, embeds = arch_inputs(eng.cfg, level, args.seed, device, batch, prompt_len)
+            out = eng.generate(toks, num_steps=steps, embeds=embeds)
+            st = eng.last_stats
+            assert out.shape == (batch, steps), out.shape
+            assert out.min() >= 0 and out.max() < cfg.vocab_size
+            assert st["finite"], f"{cfg.name}: non-finite logits at level {level}"
+            for k, n in _launches_per_run(eng.cfg, steps).items():
+                want[k] += n
+            rows.append((level, st["prefill_ms"], st["decode_ms_per_step"],
+                         torch.cuda.max_memory_allocated() if cuda else 0))
+            del eng
+    _sync(device)
+    wall = time.time() - t0
+    called = dict.fromkeys(KERNELS, 0)
+    for (name, _, _), n in mine.items():
+        called[name.replace("_model", "")] += n
+    if calls is not None:
+        calls.update(mine)
+    assert called == want, f"{cfg.name}: kernel calls {called} != layers x prefills / steps {want}"
+    counts = called
+    if cuda:
+        counts = {name: mod.launches for name, mod in KERNELS.items()}
+        assert counts == want, f"{cfg.name}: launches {counts} != kernel calls {want}"
+        assert_k1_route(cfg.name, counts["flash_attention"], cfg)
+    seq = cfg.stub_embed_len + prompt_len
+    print(f"{cfg.name}: {len(rows)} levels through the engine with stub embeddings "
+          f"(batch {batch} x {seq} = {cfg.stub_embed_len} stub + {prompt_len} tokens, "
+          f"{steps} steps), {pool.builds} engine builds, launches {counts}, wall {wall:.1f} s")
+    for level, pre, dec, peak in rows:
+        print(f"{cfg.name}: level {level}: prefill {pre:.2f} ms, {dec:.3f} ms per decode "
+              f"step, {batch * 1e3 / dec:.1f} tokens/s decode, peak memory {peak / 1e9:.2f} GB")
+    del pool
+    _free()
+    return counts
+
+
+def _ring_run(device, cfg, params, toks, steps, max_len, on, fed, held=None):
+    """Prefill and ``steps`` decode steps of ``cfg`` through the engine,
+    kernels ``on`` or off; each step is fed ``fed[i]``, or this path's own
+    greedy token where ``fed`` is None. With ``held`` (a dict), every K1 and
+    K2 call is held against its plain version on the same inputs
+    (:func:`holding_calls`). Returns the logits of the prefill and of every
+    step."""
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import resolve_dtype
+
+    eng = serve.Engine(cfg, params, serve.EngineConfig(max_len=max_len, use_kernels=on),
+                       device=device)
+    reset_counts()
+    with holding_calls(held) if held is not None else contextlib.nullcontext():
+        lg, caches, lengths = eng.prefill(toks)
+        slots = (caches["layers"]["sub0"].k.shape[2], caches["layers"]["sub1"].k.shape[2])
+        assert slots == (min(attn.layer_window(cfg, False), max_len), max_len), slots
+        logits = [lg]
+        for i in range(steps):
+            tok = logits[-1].argmax(-1) if fed is None else fed[i]
+            lg, caches, lengths = eng.decode(caches, lengths, tok)
+            logits.append(lg)
+        _sync(device)
+    assert all(torch.isfinite(x).all() for x in logits)
+    if on and device.type == "cuda":
+        counts = {k: KERNELS[k].launches for k in ("flash_attention", "decode_attention")}
+        rt = k1_route(cfg) if resolve_dtype(cfg.dtype) == torch.bfloat16 else "fma"
+        assert counts == {"flash_attention": cfg.num_layers,
+                          "decode_attention": cfg.num_layers * steps}, counts
+        assert fa_k.launches_by_route[rt] == cfg.num_layers, fa_k.launches_by_route
+        print(f"{cfg.name} ring, {cfg.dtype}: launches {counts}, K1 on {rt}")
+    return logits
+
+
+def ring_check(device, args, cfg=None, batch=RING_BATCH, prompt_len=RING_PROMPT,
+               max_len=RING_MAX_LEN):
+    """gemma2-2b's sliding-window ring past its wrap, at full width, on its
+    level-0 weights. The prompt is longer than the window (4608 against
+    4096), so ``pad_caches`` rolls the local layers' last 4096 positions by
+    4608 % 4096 = 512 and each decode step writes slot ``lengths % 4096`` of
+    their ring; the global layers decode into 5120 slots. Both paths are fed
+    the kernels-off path's greedy tokens, so that a near-tie cannot send them
+    down different sequences.
+
+    * bf16: the prefill (K1 on ``mma``, D 256, window 4096 over S 4608,
+      soft cap 50) and every decode step (K2 at D 256, G 2, soft cap 50 over
+      the 4096-slot ring and 5120 slots). Held: every K1 and K2 call of the
+      kernels-on path against its plain version on the same q, caches and
+      mask (:func:`holding_calls`). Printed: the logits, kernels on against
+      off.
+    * fp32 copies, held to LOGITS_TOL_FP32 relative to the largest logit
+      above 1 (K1 runs its ``fma`` route there): the prefill logits and every
+      step's, kernels on against off; and the last step's logits (kernels
+      off) against a prefill of the prompt and the tokens fed, which holds
+      the ring itself, whatever the kernels do.
+
+    Returns the figures by dtype."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = cfg or get_config(RING_ARCH)
+    steps, w = args.decode_steps, cfg.sliding_window
+    assert w < prompt_len and prompt_len + steps <= max_len, (w, prompt_len, max_len)
+    eng = serve.EnginePool(cfg, device=device, dtype="bfloat16", max_len=max_len,
+                           seed=args.seed, max_engines=1).engine_for(0)
+    toks = serve.make_prompts(cfg.vocab_size, batch, prompt_len, seed=args.seed, device=device)
+    print(f"{cfg.name} ring: batch {batch}, prompt {prompt_len}, {steps} decode steps, max_len "
+          f"{max_len}; local layers' ring {min(w, max_len)} slots, rolled by "
+          f"{prompt_len % min(w, max_len)}; global layers {max_len} slots")
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "bfloat16":
+            vcfg, params = eng.cfg, eng.params
+        else:
+            vcfg, params = eng.cfg.scaled(dtype="float32"), _tree_float(eng.params)
+            del eng
+            _free()
+        off = _ring_run(device, vcfg, params, toks, steps, max_len, False, None)
+        fed = [x.argmax(-1) for x in off[:steps]]
+        held = {} if dtype == "bfloat16" else None
+        on = _ring_run(device, vcfg, params, toks, steps, max_len, True, fed, held)
+        if held is not None:
+            assert {k: len(v) for k, v in held.items()} == {
+                "flash_attention": vcfg.num_layers,
+                "decode_attention": vcfg.num_layers * steps}, {k: len(v) for k, v in held.items()}
+            for k, v in held.items():
+                print(f"{cfg.name} ring, {dtype}: {k} held against its plain version on the "
+                      f"same inputs in all {len(v)} calls, max abs err {max(v):.3e} "
+                      f"(tolerance {TOL[torch.bfloat16]:g})")
+        diffs = [(a - b).abs().max().item() for a, b in zip(on, off)]
+        scale = max(x.abs().max().item() for x in off)
+        greedy = {p: torch.stack([x.argmax(-1) for x in lg], 1).tolist()
+                  for p, lg in (("on", on), ("off", off))}
+        first = next((i for i in range(steps + 1)
+                      if any(a[i] != b[i] for a, b in zip(greedy["on"], greedy["off"]))), None)
+        print(f"{cfg.name} ring, {dtype}, kernels on / off: prefill logits max abs diff "
+              f"{diffs[0]:.3e}, decode steps {', '.join(f'{d:.2e}' for d in diffs[1:])} "
+              f"(max |logit| {scale:.3f}); greedy tokens of the first row on "
+              f"{greedy['on'][0]}, off {greedy['off'][0]}; first step they differ at: "
+              f"{'none' if first is None else first}")
+        res[dtype] = {"diffs": diffs, "scale": scale, "first_differ": first}
+        if held is not None:
+            res[dtype]["held"] = {k: (len(v), max(v)) for k, v in held.items()}
+        if dtype == "float32":
+            tol = LOGITS_TOL_FP32 * max(1.0, scale)
+            assert max(diffs) <= tol, f"ring, kernels on/off in fp32: {max(diffs)} > {tol}"
+            full = torch.cat([toks, torch.stack(fed, 1)], dim=1)
+            whole = serve.Engine(vcfg, params, serve.EngineConfig(max_len=max_len,
+                                                                  use_kernels=False),
+                                 device=device).prefill(full)[0]
+            d = (whole - off[-1]).abs().max().item()
+            res[dtype]["decode_vs_prefill"] = d
+            print(f"{cfg.name} ring, fp32, kernels off: step {steps}'s logits against a prefill "
+                  f"of the prompt and the {steps} tokens fed: max abs diff {d:.3e}")
+            assert d <= tol, f"ring decode against prefill in fp32: {d} > {tol}"
+        del on, off
+        _free()
+    del params
+    _free()
+    return res
+
+
+def archs_phase(device, args, timer):
+    """The six archs that had run only as dry-run steps, served at every
+    published width (mixtral cut in depth), bf16, random weights: four
+    request traces through ``launch.serve`` (gemma2-2b, gemma2-27b,
+    qwen3-32b, the cut mixtral), each reckoned to fit before it runs; then
+    llava-next and musicgen through the engine of each level with their stub
+    frontends' embeddings; after each model, kernels on against off on its
+    level-0 weights (:func:`arch_checks`); then gemma2-2b's sliding-window
+    ring past its wrap (:func:`ring_check`). Every kernel call of the traces
+    and of the stub-frontend runs is recorded by signature
+    (:func:`recording_calls`) and, last, each distinct one is replayed
+    against its plain version and timed (:func:`dryrun_replay`). Returns
+    (the launch counts of each model's run, read right after it ran; the
+    replayed signatures)."""
+    t_phase = time.time()
+    out, calls = {}, collections.Counter()
+    for arch, max_engines in ARCH_TRACES:
+        t0 = time.time()
+        cfg = arch_config(arch)
+        if arch in CUT_CONFIGS:
+            print(reduced_line(arch))
+        max_len = serve_max_len(cfg, PROMPT, args.decode_steps)
+        _free()
+        reckon_fit(device, cfg, max_len, max_engines)
+        with recording_calls(calls):
+            report, out[arch] = run_trace(device, args, cfg, max_engines=max_engines)
+        del report
+        _free()
+        arch_checks(device, args, cfg, max_len)
+        print(f"{arch}: trace and checks, wall {time.time() - t0:.1f} s")
+    for arch in STUB_ARCHS:
+        t0 = time.time()
+        cfg = arch_config(arch)
+        out[arch] = stub_trace(device, args, cfg, calls=calls)
+        arch_checks(device, args, cfg, serve_max_len(cfg, PROMPT, args.decode_steps))
+        print(f"{arch}: engine levels and checks, wall {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ring_check(device, args)
+    print(f"{RING_ARCH} ring check: wall {time.time() - t0:.1f} s")
+    t0 = time.time()
+    print(f"archs: {len(calls)} distinct kernel call signatures in the traces and the "
+          f"stub-frontend runs, replayed against the plain versions:")
+    replayed = dryrun_replay(device, timer, calls, label="archs")
+    print(f"archs: replay wall {time.time() - t0:.1f} s; phase wall "
+          f"{time.time() - t_phase:.1f} s")
+    return out, replayed
 
 
 def _probe(params):
@@ -1809,28 +2354,24 @@ def _leaf_keys(tree, prefix=""):
 def profile_phase(device, args):
     """Where the time goes (not part of the default run): ``torch.profiler``
     over one prefill and four decode steps of the full-width level-0 engine
-    (jamba: of the cut config the trace runs). Prints wall time, the device's
-    busy time and idle share, the kernels that take most of the device time
-    and the busy time by kind."""
+    (jamba, deepseek, mixtral: of the cut config their traces run; llava-next
+    and musicgen: with their stub embeddings ahead of the prompt). Prints
+    wall time, the device's busy time and idle share, the kernels that take
+    most of the device time and the busy time by kind."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    if args.arch == JAMBA:
-        cfg = jamba_cut_config()
-        print(reduced_line())
-    elif args.arch == DEEPSEEK:
-        cfg = deepseek_cut_config()
-        print(reduced_line(DEEPSEEK))
-    else:
-        cfg = get_config(args.arch)
+    cfg = arch_config(args.arch)
+    if args.arch in CUT_CONFIGS:
+        print(reduced_line(args.arch))
     torch.cuda.reset_peak_memory_stats()
-    eng = serve.EnginePool(cfg, device=device, dtype="bfloat16", max_len=MAX_LEN,
+    eng = serve.EnginePool(cfg, device=device, dtype="bfloat16",
+                           max_len=serve_max_len(cfg, PROMPT, args.decode_steps),
                            seed=args.seed).engine_for(0)
-    toks = serve.make_prompts(cfg.vocab_size, B, PROMPT, seed=args.seed, device=device)
-    eng.generate(toks, num_steps=2)                      # warm-up
-    logits, caches, lengths = eng.prefill(toks)
+    toks, embeds = arch_inputs(cfg, 0, args.seed, device)
+    eng.generate(toks, num_steps=2, embeds=embeds)       # warm-up
+    logits, caches, lengths = eng.prefill(toks, embeds)
     state = {"caches": caches, "lengths": lengths, "tok": logits.argmax(-1)}
 
     def decode4():
@@ -1839,7 +2380,8 @@ def profile_phase(device, args):
                 state["caches"], state["lengths"], state["tok"])
             state["tok"] = lg.argmax(-1)
 
-    for name, fn in (("prefill", lambda: eng.prefill(toks)), ("4 decode steps", decode4)):
+    for name, fn in (("prefill", lambda: eng.prefill(toks, embeds)),
+                     ("4 decode steps", decode4)):
         torch.cuda.synchronize()
         with _model_ranges(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2142,6 +2684,36 @@ def recording_calls(calls):
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def holding_calls(errs):
+    """K1's and K2's entries wrapped to hold each call's output against the
+    plain version on the same inputs, at the kernels phase's tolerances
+    (K1's plain version in slices, :func:`_plain_in_slices`); each call's
+    max abs error is appended to ``errs[entry]``. The plain versions launch
+    nothing, so the launch counts stay the path's own. Put back on exit."""
+    flash, decode = fa_k.flash_attention, dec_k.decode_attention
+
+    def held_flash(q, k, v, **kw):
+        got = flash(q, k, v, **kw)
+        want = _plain_in_slices(fa_k.flash_attention_plain, (q, k, v), "qkk", **kw)
+        errs.setdefault("flash_attention", []).append(max(
+            _check(f"held flash {w}", x, y, TOL[q.dtype])
+            for w, x, y in zip(("out", "lse"), got if isinstance(got, tuple) else (got,), want)))
+        return got
+
+    def held_decode(q, k, v, mask, **kw):
+        got = decode(q, k, v, mask, **kw)
+        errs.setdefault("decode_attention", []).append(_check(
+            "held decode", got, dec_k.decode_attention_plain(q, k, v, mask, **kw), TOL[q.dtype]))
+        return got
+
+    fa_k.flash_attention, dec_k.decode_attention = held_flash, held_decode
+    try:
+        yield errs
+    finally:
+        fa_k.flash_attention, dec_k.decode_attention = flash, decode
+
+
 def _laid_out(sig, values):
     """``values`` copied into a tensor of the recorded shape, strides,
     storage offset and dtype."""
@@ -2253,20 +2825,21 @@ def _describe(args, kw):
     return ", ".join([one(a) for a in args] + [f"{k}={one(v)}" for k, v in kw])
 
 
-def dryrun_replay(device, timer, calls):
+def dryrun_replay(device, timer, calls, label="dryrun"):
     """Each distinct signature in ``calls`` replayed once on random inputs
     laid out as recorded and held against its kernel's plain version, then
-    timed. A signature of an entry with no replay fails the phase."""
+    timed; ``label`` names the phase in the printed lines. A signature of an
+    entry with no replay fails the phase."""
     gen = torch.Generator(device=device).manual_seed(7)
     rows = []
     for (name, args, kw), n in sorted(calls.items(), key=lambda c: (c[0][0], repr(c[0][1:]))):
-        assert name in REPLAYS, f"the dry run reached {name}, which has no replay here"
+        assert name in REPLAYS, f"the {label} phase reached {name}, which has no replay here"
         err, fn = REPLAYS[name](gen, args, dict(kw))
         ms = timer(fn, warmup=1, iters=5) if device.type == "cuda" else None
         rows.append({"kernel": name.replace("_model", ""), "entry": name,
                      "signature": _describe(args, kw), "calls": n,
                      "max_abs_err": err, "ms": ms})
-        print(f"  dryrun replay {name}({rows[-1]['signature']}): {n} calls; max abs err "
+        print(f"  {label} replay {name}({rows[-1]['signature']}): {n} calls; max abs err "
               f"{err:.3e}" + ("" if ms is None else f", {ms:.4f} ms"), flush=True)
         del fn
         gc.collect()
@@ -2347,11 +2920,62 @@ def dryrun_kernel_shapes(device, timer):
         "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    rows["flash_attention_bwd"] = _k5_d256_shape(gen, device, timer)
     for name, r in rows.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"  dryrun {name} at {r['shape']}: {r['ms']:.4f} ms, device "
               f"{r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{lib} ({r.get('library_note', '')}), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     return rows
+
+
+def _k5_d256_shape(gen, device, timer):
+    """K5 on its ``fma`` route at gemma2-2b's train microbatch (q/dout (1,
+    8, 4096, 256), k/v (1, 4, 4096, 256) bf16, causal, soft cap 50, delta
+    inside from ``out``) against its plain version, timed beside the SDPA
+    backward alone (``torch.autograd.grad`` after one forward), which has no
+    soft cap and runs without it; where PyTorch refuses D 256 there, the row
+    says so."""
+    dt = torch.bfloat16
+    b, h, kv, s, d, cap = 1, 8, 4, 4096, 256, 50.0
+    (q, k, v, dout, lse, delta), out = _bwd_inputs(gen, b, h, kv, s, s, d, dt, device,
+                                                   softcap=cap)
+    assert fab_k.route(dt, d) == "fma"
+    fn = lambda: fab_k.flash_attention_bwd(q, k, v, dout, lse, out=out, softcap=cap)  # noqa: E731
+    want = fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta, softcap=cap)
+    err = max(_check(f"dryrun flash_bwd[d256] {w}", x, y, BWD_TOL[dt])
+              for w, x, y in zip(("dq", "dk", "dv"), fn(), want))
+    del want
+    ms = timer(fn, iters=7)
+    dev_ms, _ = device_ms(fn, iters=7)
+    plain_ms = timer(lambda: fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                             softcap=cap), warmup=1, iters=3)
+    note = "SDPA backward alone, without the soft cap"
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    try:
+        try:
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        except TypeError:
+            kg, vg = (t.repeat_interleave(h // kv, dim=1).detach().requires_grad_(True)
+                      for t in (k, v))
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        lib = lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout,  # noqa: E731
+                                          retain_graph=True)
+        lib()
+        library_ms = timer(lib, iters=7)
+    except RuntimeError as e:
+        library_ms, note = None, f"PyTorch refused the SDPA backward at D 256: {str(e)[:160]}"
+    pair_flops = 2 * d * b * h * _visible_pairs(s, s, True, None, 0)
+    nbytes = (3 * b * h * s * d + 4 * b * kv * s * d) * 2 + 2 * 4 * b * h * s
+    t_b, t_f = nbytes / HBM_BW * 1e3, 5 * pair_flops / PEAK_FLOPS[dt] * 1e3
+    return {"shape": f"q/dout({b},{h},{s},{d}) kv({b},{kv},{s},{d}) bf16 causal softcap 50, "
+                     f"route fma (gemma2-2b train microbatch)",
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_note": note,
+            "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
 
 
 def dryrun_phase(device, args, card, timer):
@@ -2409,17 +3033,18 @@ def dryrun_phase(device, args, card, timer):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "main", "train", "sim", "dryrun",
-                                        "profile"), default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "main", "archs", "train", "sim",
+                                        "dryrun", "profile"), default="all")
     ap.add_argument("--all", action="store_true",
                     help="--phase dryrun: every cell of configs.cells(), not only DRYRUN_CELLS")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--decode-steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--arch", choices=("phi4-mini-3.8b", "rwkv6-1.6b", JAMBA, DEEPSEEK),
+    ap.add_argument("--arch", choices=("phi4-mini-3.8b", "rwkv6-1.6b", JAMBA, DEEPSEEK)
+                    + tuple(a for a, _ in ARCH_TRACES) + STUB_ARCHS,
                     default="phi4-mini-3.8b", help="the model --phase profile runs "
                     f"({JAMBA}: cut to one super-block and 8 experts; {DEEPSEEK}: cut "
-                    f"to {DEEPSEEK_LAYERS} layers)")
+                    f"to {DEEPSEEK_LAYERS} layers; {MIXTRAL}: cut to {MIXTRAL_LAYERS} layers)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2490,6 +3115,11 @@ def main(argv=None):
     paths = {}      # path -> the launch counts read right after it ran
     if args.phase in ("all", "main"):
         paths.update(main_path(device, args))
+    if args.phase in ("all", "archs"):
+        archs, archs_replayed = archs_phase(device, args, Timer(device))
+        paths.update(archs)
+        for kd in kernels:
+            kd["archs_replayed"] = [r for r in archs_replayed if r["kernel"] == kd["name"]]
     if args.phase in ("all", "train"):
         paths["train"] = train_phase(device, args)
     if args.phase in ("all", "sim"):
