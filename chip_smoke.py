@@ -28,7 +28,8 @@ Phases, each of which fails the run with a non-zero exit code:
    see no column (a window and a ``q_offset`` past ``S - 1 + window``) must
    give the mean of V and ``lse = -1e30`` on every route. The backward is
    checked with delta given and with delta computed inside from the
-   forward's output (as ``ops`` calls it). The WKV recurrence runs through
+   forward's output (as ``ops`` calls it), bf16 at D 256 on its ``mma``
+   route among its cases. The WKV recurrence runs through
    both entries: the folded one of the reference's signature, and the
    model-layout one on (B, S, H, D) views in bf16 / fp32, which must equal
    the folded entry bit for bit. Flash and decode attention, the backward and
@@ -88,12 +89,25 @@ Phases, each of which fails the run with a non-zero exit code:
    ``repro_torch.launch.train.run_training`` (fp32 master weights, bf16
    compute, remat, batch 8 x 512, 3 AdamW steps), every step checked for a
    finite loss and grad norm, moved parameters and its launches (K1 twice
-   and K5 once a layer), the last step profiled; then the gradients with the
-   kernels on held against the einsum path (fp32 copies at 2 layers, leaf by
-   leaf; bf16 at full depth, the first step's loss and grad norm); and one
-   step with ``remat_policy="save_attn"`` against one with ``"nothing"``
-   from the same parameters and batch (the loss bit for bit, the gradients
-   to the bf16 limits, K1 and K5 launches, step time and memory of each);
+   and K5 once a layer and microbatch), the last step profiled; then the
+   gradients with the kernels on held against the einsum path (fp32 copies
+   at 2 layers, leaf by leaf; bf16 at full depth, the first step's loss and
+   grad norm and attention leaves); and one step with
+   ``remat_policy="save_attn"`` against one with ``"nothing"`` from the
+   same parameters and batch (the loss bit for bit, the gradients to the
+   bf16 limits, K1 and K5 launches, step time and memory of each). Then, the
+   same way, each memory reckoned first: gemma2-2b at full width and depth
+   (2 x 5120 tokens in 2 microbatches: past its 4096 window, so the local
+   layers' window masks pairs in K1 and K5; K1 and K5 on ``mma`` at D 256)
+   and mixtral-8x7b at every width with all 8 experts, cut to 2 layers (8 x
+   512; ``wgmma``; the loss with its load-balance term), every K1 and K5
+   call of their first steps held against the plain version on its own
+   inputs; bf16 on/off at the trained depth and fp32 copies leaf by leaf
+   (gemma2-2b: one local and one global layer at S 5120; mixtral: one
+   layer), mixtral's experts pinned to the einsum path's choices by (layer,
+   pass) and the share its router would have flipped printed; last, every
+   kernel call of those two runs replayed by signature against its plain
+   version;
 6. sim: the online simulator (``repro_torch.launch.sim``, pure host code)
    over analytic ``H100_SXM`` tables of phi4-mini-3.8b, the six scenarios of
    the golden digests x ``proportional`` x {none, full} at horizon 6 s,
@@ -190,6 +204,15 @@ ATTN_GRAD_TOL_BF16 = 5e-2
 B, H, KV, D, PROMPT, MAX_LEN = 8, 24, 8, 128, 512, 1024
 # the train phase: batch x PROMPT tokens a step; the last step is profiled
 TRAIN_BATCH, TRAIN_STEPS = 8, 3
+# the train phase's runs after phi4's: (arch, global batch, sequence length,
+# microbatches, layers and sequences of the fp32 hold). gemma2-2b at full
+# width and depth with sequences past its 4096 window, so that its local
+# layers' window masks pairs in K1 and K5, and its fp32 hold one local and
+# one global layer at that length; mixtral-8x7b at every published width
+# with all 8 experts, cut to MIXTRAL_TRAIN_LAYERS layers (3.16 B
+# parameters), its fp32 hold one layer
+TRAIN_RUNS = (("gemma2-2b", 2, 5120, 2, 2, 1), ("mixtral-8x7b", TRAIN_BATCH, 512, 1, 1, 8))
+MIXTRAL_TRAIN_LAYERS = 2
 # rwkv6-1.6b: 32 heads of 64 folded with the batch, recurrence in fp32
 WKV_BH, WKV_D = B * 32, 64
 # jamba-1.5-large: 64 q heads / 8 kv heads of 128 (G = 8); Mamba d_inner
@@ -287,11 +310,12 @@ def arch_config(arch: str):
     return CUT_CONFIGS[arch]() if arch in CUT_CONFIGS else get_config(arch)
 
 
-def reduced_line(arch: str = JAMBA) -> str:
-    """What the cut of ``arch`` leaves out, as a ``reduced:`` line."""
+def reduced_line(arch: str = JAMBA, cut=None) -> str:
+    """What the cut of ``arch`` (``cut``, or the one this script serves)
+    leaves out, as a ``reduced:`` line."""
     from repro_torch.configs import get_config
 
-    full, cut = get_config(arch), arch_config(arch)
+    full, cut = get_config(arch), cut or arch_config(arch)
     parts = [f"num_layers {full.num_layers} -> {cut.num_layers}"]
     if full.moe is not None and full.moe.num_experts != cut.moe.num_experts:
         parts.append(f"num_experts {full.moe.num_experts} -> {cut.moe.num_experts}")
@@ -398,6 +422,10 @@ def assert_k3_tma(where, n):
     """Every one of the ``n`` K3 launches counted since the last reset went
     through the ``tma`` route."""
     _assert_route(ssm_k, K3_ROUTES, "K3", where, n, "tma")
+
+
+# the route every K5 launch of a bf16 run must take, by head dim
+K5_ROUTE_BY_HEAD_DIM = {64: "wgmma", 128: "wgmma", 256: "mma"}
 
 
 def assert_k5_wgmma(where, n):
@@ -1120,6 +1148,16 @@ def flash_bwd_cases():
         ("wgmma blind rows d128 g3", bf, 2, 6, 2, 64, 200, 128, 32, 0.0, 220, True),
         ("wgmma sq3 d64 g3 contiguous", bf, 2, 6, 2, 3, 3, 64, None, 0.0, 0, True),
         ("wgmma train d128 contiguous", bf, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
+        # the mma route at D 256 (gemma2-2b's head dim): soft cap 50, window 64
+        # with ragged S, G 1 / 2 / 8, window with q_offset, rows that see no
+        # column, non-causal, contiguous tensors
+        ("mma d256 window64 ragged s200 g2", bf, 1, 8, 4, 200, 200, 256, 64, 0.0, 0, True),
+        ("mma d256 softcap50 g1", bf, 2, 4, 4, 192, 192, 256, None, 50.0, 0, True),
+        ("mma d256 window64 softcap50 g8", bf, 1, 16, 2, 256, 256, 256, 64, 50.0, 0, True),
+        ("mma d256 window70 q_offset100 g2", bf, 2, 4, 2, 90, 190, 256, 70, 0.0, 100, True),
+        ("mma d256 blind rows g2", bf, 2, 4, 2, 64, 200, 256, 32, 0.0, 220, True),
+        ("mma d256 non-causal sq100 s300 g2", bf, 1, 4, 2, 100, 300, 256, None, 0.0, 0, False),
+        ("mma d256 softcap50 g2 contiguous", bf, 1, 8, 4, 256, 256, 256, None, 50.0, 0, True),
     ]
 
 
@@ -1143,6 +1181,7 @@ def check_flash_bwd(device, timer):
                                contiguous=name.endswith("contiguous"), **kw)
         rt = fab_k.route(dt, d)
         assert name.startswith("wgmma") <= (rt == "wgmma"), (name, rt)
+        assert name.startswith("mma ") <= (rt == "mma"), (name, rt)
         before = fab_k.launches_by_route[rt]
         got = fab_k.flash_attention_bwd(*ins, **kw)
         torch.cuda.synchronize()
@@ -1229,6 +1268,8 @@ def check_flash_bwd(device, timer):
     pair_flops = 2 * D * B * H * _visible_pairs(PROMPT, PROMPT, True, None, 0)
     flops, design_flops = 5 * pair_flops, 7 * pair_flops
     t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    print(f"  flash_bwd[timed]: the design's 7 products at 989 TFLOP/s "
+          f"{design_flops / PEAK_FLOPS[dt] * 1e3:.4f} ms")
     return {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
@@ -1245,7 +1286,6 @@ def check_flash_bwd(device, timer):
         "shape": f"q/dout({B},{H},{PROMPT},{D}) kv({B},{KV},{PROMPT},{D}) bf16 causal",
         "bytes": nbytes, "flops": flops, "bound_bytes_ms": t_b, "bound_flops_ms": t_f,
         "design_flops": design_flops,
-        "design_flops_ms": design_flops / PEAK_FLOPS[dt] * 1e3,
         "max_abs_err_all_bf16": worst[torch.bfloat16],
         "max_abs_err_all_fp32": worst[torch.float32],
     }
@@ -2057,15 +2097,11 @@ def archs_phase(device, args, timer):
 
 
 def _probe(params):
-    """A few elements of every kind of leaf, to see that a step moved them."""
-    lay = params["layers"]["sub0"]
-    return {
-        "embedding": params["embed"]["embedding"][:4, :8],
-        "final_norm": params["final_norm"][:8],
-        "norm_mixer": lay["norm_mixer"][0, :8],
-        "wq": lay["attn"]["wq"][0, :4, 0, :4],
-        "w_down": lay["mlp"]["w_down"][-1, :4, :4],
-    }
+    """The first 8 elements of every parameter leaf, to see that a step
+    moved them all."""
+    from repro_torch.train import optimizer as opt_lib
+
+    return {k: t.reshape(-1)[:8] for k, t in zip(_leaf_keys(params), opt_lib._leaves(params))}
 
 
 def _profile_rows(prof):
@@ -2085,185 +2121,407 @@ def _profile_rows(prof):
     return rows
 
 
-def train_phase(device, args):
-    """phi4-mini-3.8b trained at full width and depth through
-    ``launch.train.run_training``: fp32 master weights, bf16 compute, remat,
-    batch ``TRAIN_BATCH`` x 512 from the synthetic stream, ``TRAIN_STEPS``
-    steps. Every step is checked (finite loss and grad norm, parameters that
-    moved, K1 = 2 x layers and K5 = layers launches: remat runs each layer's
-    forward twice). Then the gradients with the kernels on are held against
-    the einsum path: leaf by leaf in fp32 copies at full width and 2 layers;
-    at full depth in bf16, the first step's loss and grad norm and the
-    attention leaves' gradients. Returns the launch counts of the training
-    run."""
-    from torch.profiler import ProfilerActivity, profile
-
+def train_config(arch: str):
+    """The config the train phase trains for ``arch``: mixtral at every
+    published width with all 8 experts, cut to ``MIXTRAL_TRAIN_LAYERS``
+    layers; any other arch as published."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, to_device
-    from repro_torch.launch import train as train_launch
-    from repro_torch.train import optimizer as opt_lib
-    from repro_torch.train import train_step as ts
 
-    cfg = get_config("phi4-mini-3.8b")
-    n_layers, batch, steps = cfg.num_layers, TRAIN_BATCH, TRAIN_STEPS
-    rec = {"events": [], "loss": [], "gnorm": [], "prev": None, "counts": None,
-           "prof": None, "prof_wall": None}
+    cfg = get_config(arch)
+    return cfg.scaled(num_layers=MIXTRAL_TRAIN_LAYERS) if arch == MIXTRAL else cfg
 
-    def counts():
-        return {name: mod.launches for name, mod in KERNELS.items()}
 
-    def on_step(i, state, metrics):
+def k5_route(cfg) -> str:
+    """The route every K5 launch of a bf16 run of ``cfg`` must take: ``mma``
+    at head dim 256 (gemma2-2b), ``wgmma`` at 64 and 128."""
+    return K5_ROUTE_BY_HEAD_DIM[cfg.head_dim]
+
+
+def assert_k5_route(where, n, cfg):
+    """Every one of the ``n`` K5 launches counted since the last reset went
+    through :func:`k5_route` of ``cfg``."""
+    _assert_route(fab_k, K5_ROUTES, "K5", where, n, k5_route(cfg))
+
+
+def _kernel_kind(key: str) -> str:
+    """A profiled kernel's row in the train phase's breakdown: K1 and K5 by
+    route (from the kernel's name), cuBLAS, or other."""
+    for tag, kernel in (("flash_fwd", "K1"), ("bwd_dq", "K5"), ("bwd_dkv", "K5")):
+        if tag in key:
+            rt = "mma" if "_mma_" in key else "wgmma" if "_sm90_" in key else "fma"
+            return f"{kernel} {rt}"
+    if re.search(GEMM_RE, key, re.I):
+        return "matmul (cuBLAS)"
+    return "other (ATen elementwise, copies, reductions)"
+
+
+def reckon_train(device, cfg, batch, seq_len, microbatches):
+    """Before a train run: ``launch.dryrun.reckon_footprint`` of its step,
+    kernels on (fp32 masters and gradients, bf16 moments, the remat inputs,
+    one unit's recompute, one microbatch's logits with their gradient),
+    printed and held against the card's free memory, as :func:`reckon_fit`
+    holds a trace. Returns the reckoned bytes."""
+    from repro_torch.launch import dryrun as dr
+
+    total = dr.reckon_footprint(cfg, "train", batch, seq_len, microbatches=microbatches,
+                                kernels=True)
+    free = torch.cuda.mem_get_info(device)[0] if device.type == "cuda" else None
+    print(f"train {cfg.name}: {param_bytes(cfg, 1) / 1e9:.2f} B parameters; reckoned "
+          f"(launch.dryrun.reckon_footprint, kernels on, {batch} x {seq_len} in "
+          f"{microbatches} microbatches) {total / 1e9:.1f} GB"
+          + ("" if free is None else f" of {free / 1e9:.1f} GB free"))
+    assert free is None or total <= free, f"{cfg.name}: {total} bytes reckoned, {free} free"
+    return total
+
+
+class StepChecks:
+    """``run_training``'s ``on_step`` for the train phase. After every step:
+    a finite loss and grad norm, every parameter leaf moved, and each
+    kernel's launches equal to the step's own count (``expected_launches``:
+    K1 twice and K5 once a GQA layer and microbatch, since remat reruns each
+    forward). On the card it records a CUDA event after each step and
+    profiles the last one. ``hold_first``: every K1 and K5 call of the first
+    step is held against its plain version on the same inputs
+    (:func:`holding_calls`; the errors land in ``held``)."""
+
+    def __init__(self, cfg, microbatches, steps, device, hold_first=False):
+        self.want = expected_launches(cfg, "train", microbatches, 1)
+        self.steps, self.cuda = steps, device.type == "cuda"
+        self.hold_first, self.held = hold_first, {}
+        self.events = []
+        self.prev = self.counts = self.prof = self.prof_done = self.prof_wall = None
+        self._hold = contextlib.ExitStack()
+
+    def __call__(self, i, state, metrics):
         snap = {k: v.detach().clone() for k, v in _probe(state.params).items()}
-        now = counts()
+        now = {name: mod.launches for name, mod in KERNELS.items()}
         if metrics is not None:
+            self._hold.close()                       # the first step's holds end here
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
             assert np.isfinite(loss) and np.isfinite(gnorm), (i, loss, gnorm)
-            still = [k for k in snap if torch.equal(snap[k], rec["prev"][k])]
+            still = [k for k in snap if torch.equal(snap[k], self.prev[k])]
             assert not still, f"step {i}: parameters did not move: {still}"
-            delta = {k: now[k] - rec["counts"][k] for k in now}
-            want = {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers,
-                    "decode_attention": 0, "ssm_scan": 0, "rwkv6_wkv": 0}
-            assert delta == want, f"step {i}: launches {delta} != {want}"
-            rec["loss"].append(loss)
-            rec["gnorm"].append(gnorm)
+            delta = {k: now[k] - self.counts[k] for k in now}
+            assert delta == self.want, f"step {i}: launches {delta} != {self.want}"
             print(f"  train step {i}: loss {loss:.5f}  grad norm {gnorm:.5f}  "
                   f"launches {delta}")
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        rec["events"].append(ev)
-        if rec["prof"] is not None:                 # end of the profiled step
-            torch.cuda.synchronize()
-            rec["prof_wall"] = (time.perf_counter() - rec["prof_t0"]) * 1e3
-            rec["prof"].__exit__(None, None, None)
-            rec["prof_done"], rec["prof"] = rec["prof"], None
-        elif metrics is not None and i == steps - 2:   # profile the last step
-            rec["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            rec["prof"].__enter__()
-            rec["prof_t0"] = time.perf_counter()
-        rec["prev"], rec["counts"] = snap, now
+        elif self.hold_first:
+            self._hold.enter_context(holding_calls(self.held))
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            if self.prof is not None:                       # end of the profiled step
+                torch.cuda.synchronize()
+                self.prof_wall = (time.perf_counter() - self.prof_t0) * 1e3
+                self.prof.__exit__(None, None, None)
+                self.prof_done, self.prof = self.prof, None
+            elif metrics is not None and i == self.steps - 2:   # profile the last step
+                from torch.profiler import ProfilerActivity, profile
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.prof_t0 = time.perf_counter()
+        self.prev, self.counts = snap, now
+
+
+def train_run(device, args, cfg, batch, seq_len, microbatches=1, steps=TRAIN_STEPS,
+              where="train", calls=None, hold_first=False):
+    """``cfg`` trained through ``launch.train.run_training``: fp32 master
+    weights, bf16 compute (``cfg.dtype``), remat, ``batch`` x ``seq_len``
+    tokens a step from the synthetic stream in ``microbatches``, ``steps``
+    steps, every step checked (:class:`StepChecks`). ``calls``: a Counter
+    that records every kernel call by signature (:func:`recording_calls`).
+    On the card: K1's and K5's routes held to the head dim's, and printed:
+    step times, tokens/s, peak memory, the profiled last step's idle share
+    and busy time by kind (K1 and K5 by route, cuBLAS, other) and the
+    ``train.apply_updates`` span. Returns the run's launch counts and what
+    the first step's holds read."""
+    from repro_torch.launch import train as train_launch
 
     reset_counts()
     fab_k.copied_bytes = 0
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    if device.type == "cuda":
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+    chk = StepChecks(cfg, microbatches, steps, device, hold_first=hold_first)
     t0 = time.time()
-    losses = train_launch.run_training(
-        cfg, device=device, steps=steps, global_batch=batch, seq_len=PROMPT,
-        seed=args.seed, remat=True, use_kernels=True, log_every=1, verbose=True,
-        on_step=on_step)
-    torch.cuda.synchronize()
+    with recording_calls(calls) if calls is not None else contextlib.nullcontext():
+        losses = train_launch.run_training(
+            cfg, device=device, steps=steps, global_batch=batch, seq_len=seq_len,
+            microbatches=microbatches, seed=args.seed, remat=True, use_kernels=True,
+            log_every=1, verbose=True, on_step=chk)
+    _sync(device)
     wall = time.time() - t0
-    total = counts()
-    assert_k1_wgmma("train", total["flash_attention"])
-    assert_k5_wgmma("train", total["flash_attention_bwd"])
+    total = {name: mod.launches for name, mod in KERNELS.items()}
+    assert len(losses) == steps and total == {k: n * steps for k, n in chk.want.items()}, total
+    out = {"counts": total, "held": chk.held}
+    for name, errs in sorted(chk.held.items()):
+        print(f"train {cfg.name}: the first step's {len(errs)} {name} calls held against "
+              f"the plain version on their own inputs: max abs err {max(errs):.3e}")
+    if device.type != "cuda":
+        return out
+    assert_k1_route(where, total["flash_attention"], cfg)
+    assert_k5_route(where, total["flash_attention_bwd"], cfg)
     peak = torch.cuda.max_memory_allocated()
-    assert len(losses) == steps and total["flash_attention_bwd"] == steps * n_layers
-    ev = rec["events"]
+    ev = chk.events
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
     clean = step_ms[1:-1] or step_ms[-1:]          # neither warm-up nor profiled
     ms = statistics.median(clean)
-    print(f"train phi4-mini-3.8b: {steps} steps of {batch} x {PROMPT} tokens, full width "
-          f"and depth, bf16 compute, fp32 master, remat; step ms "
-          f"{', '.join(f'{t:.1f}' for t in step_ms)} (first: warm-up, last: profiled); "
-          f"{ms:.1f} ms a step, {batch * PROMPT * 1e3 / ms:.0f} tokens/s; "
-          f"peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); wall {wall:.1f} s; "
-          f"launches {total}; K5 operand copies {fab_k.copied_bytes} bytes")
+    print(f"train {cfg.name}: {steps} steps of {batch} x {seq_len} tokens in {microbatches} "
+          f"microbatch(es), {cfg.num_layers} layers, bf16 compute, fp32 master, remat; step ms "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} (first: warm-up"
+          f"{' and holds' if hold_first else ''}, last: profiled); {ms:.1f} ms a step, "
+          f"{batch * seq_len * 1e3 / ms:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
+          f"({peak / 1e9:.2f} GB); wall {wall:.1f} s; launches {total}; K5 operand copies "
+          f"{fab_k.copied_bytes} bytes")
     assert peak < 80e9, f"peak memory {peak} above the card's 80 GB"
-    rows = _profile_rows(rec["prof_done"])
+    rows = _profile_rows(chk.prof_done)
     if not rows:
-        raise AssertionError("the profiler saw no device time in the train step")
+        raise AssertionError(f"the profiler saw no device time in {cfg.name}'s train step")
     busy = sum(r[0] for r in rows) / 1e3
-    print(f"profile[train step {steps - 1}]: wall {rec['prof_wall']:.1f} ms (profiler on), "
-          f"device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / rec['prof_wall']):.3f}")
+    idle = max(0.0, 1 - busy / chk.prof_wall)
+    print(f"profile[train {cfg.name} step {steps - 1}]: wall {chk.prof_wall:.1f} ms (profiler "
+          f"on), device busy {busy:.1f} ms, idle share {idle:.3f}")
     for dev_us, count, key in rows[:12]:
         print(f"    {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-    cats = {"K1 flash_fwd": 0.0, "K5 bwd_dq/bwd_dkv": 0.0, "matmul (cuBLAS)": 0.0,
-            "other (ATen elementwise, copies, reductions)": 0.0}
+    cats = collections.Counter()
     for dev_us, _, key in rows:
-        if "flash_fwd" in key:
-            cats["K1 flash_fwd"] += dev_us
-        elif "bwd_dq" in key or "bwd_dkv" in key:
-            cats["K5 bwd_dq/bwd_dkv"] += dev_us
-        elif re.search(GEMM_RE, key, re.I):
-            cats["matmul (cuBLAS)"] += dev_us
-        else:
-            cats["other (ATen elementwise, copies, reductions)"] += dev_us
+        cats[_kernel_kind(key)] += dev_us
     print("  by kind: " + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e3 / busy:.1%})"
-                                    for k, v in cats.items()))
+                                    for k, v in sorted(cats.items())))
     # the range's own device time is its span on the device timeline, which
     # the optimizer's stream of large elementwise kernels keeps busy
     opt_ms = max([(getattr(e, "self_device_time_total", None)
                    or getattr(e, "self_cuda_time_total", 0))
-                  for e in rec["prof_done"].key_averages()
+                  for e in chk.prof_done.key_averages()
                   if e.key == "train.apply_updates"] or [0]) / 1e3
     print(f"  optimizer (span of the range train.apply_updates on the device): "
           f"{opt_ms:.1f} ms; loss, forward and backward: the other "
           f"{busy - opt_ms:.1f} ms of busy time")
-    first_loss, first_gnorm = rec["loss"][0], rec["gnorm"][0]
-    del rec
-    gc.collect()
-    torch.cuda.empty_cache()
+    del chk
+    _free()
+    return out
 
-    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=PROMPT,
-                                      global_batch=batch, seed=args.seed))
-    tokens = to_device(data.batch(0), device)
 
-    # full depth, bf16, the first step from the run's initial state: its loss
-    # and grad norm with the kernels on are the run's own; the attention
-    # leaves' gradients come from one more first step on each path
-    attn = {}
-    for on in (True, False):
-        tcfg = ts.TrainConfig(remat=True, use_kernels=on)
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = ts.init_train_state(cfg, tcfg, gen, device=device).params
-        loss, _, grads = ts.loss_and_grads(cfg, tcfg, params, tokens)
-        if not on:
-            off_loss, off_gnorm = float(loss), float(opt_lib.global_norm(grads))
-        attn[on] = grads["layers"]["sub0"]["attn"]
-        del params, grads, loss
+@contextlib.contextmanager
+def pinned_experts(chosen, pin=None):
+    """Every MoE top-k choice made inside, recorded in ``chosen`` under
+    (layer, pass, n): the layer by the order its router weight is first
+    seen, the pass by how many times that layer ran before (under remat the
+    backward reruns each layer: pass 0 is the forward, 1 its rerun), n = 0
+    for the routing of its tokens and 1 for its load-balance term. With
+    ``pin`` (such a record from another run of the same model and batch),
+    each choice is replaced by the pinned one, the gates taken from this
+    run's router probabilities at the pinned experts, so the capacity drop
+    and the load-balance term follow the pin; ``chosen`` still records
+    this run's own choices. Put back on exit."""
+    from repro_torch.models import moe as moe_mod
+
+    apply, topk = moe_mod.moe_apply, moe_mod._topk
+    layers, runs, cur = {}, collections.Counter(), [None, 0]
+
+    def hooked_apply(cfg, p, x):
+        layer = layers.setdefault(p["w_router"].data_ptr(), len(layers))
+        cur[0], cur[1] = (layer, runs[layer]), 0
+        runs[layer] += 1
+        return apply(cfg, p, x)
+
+    def hooked_topk(probs, k):
+        vals, idx = topk(probs, k)
+        key = (*cur[0], cur[1])
+        cur[1] += 1
+        chosen[key] = idx.detach()
+        if pin is not None:
+            assert key in pin, f"no pinned choice for MoE call {key}"
+            idx = pin[key]
+            vals = probs.gather(-1, idx)
+        return vals, idx
+
+    moe_mod.moe_apply, moe_mod._topk = hooked_apply, hooked_topk
+    try:
+        yield chosen
+    finally:
+        moe_mod.moe_apply, moe_mod._topk = apply, topk
+
+
+def flipped_share(own, off, key=(0, 0, 0)):
+    """The share of tokens whose expert set differs between two records of
+    :func:`pinned_experts` at ``key`` (default: the first MoE layer's
+    routing in the forward)."""
+    a, b = (x[key].sort(dim=-1).values for x in (own, off))
+    return (a != b).any(dim=-1).float().mean().item()
+
+
+def _on_off_grads(cfg, tcfg_kw, params, batch, moe, keep):
+    """One ``loss_and_grads`` each with the kernels off and on, from the same
+    parameters and batch; a MoE model's kernels-on run has its experts
+    pinned to the kernels-off run's choices (:func:`pinned_experts`).
+    ``keep(grads)`` picks what is kept of each run's gradients (the rest is
+    freed before the next run). Returns ({on: (loss, grad norm, kept)}, the
+    share of tokens whose experts the kernels-on router would have chosen
+    otherwise at the first MoE layer, None without MoE)."""
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    out, chosen = {}, {False: {}, True: {}}
+    for on in (False, True):
+        tcfg = ts.TrainConfig(remat=True, use_kernels=on, **tcfg_kw)
+        with (pinned_experts(chosen[on], pin=chosen[False] if on else None) if moe
+              else contextlib.nullcontext()):
+            loss, _, grads = ts.loss_and_grads(cfg, tcfg, params, batch)
+        out[on] = (float(loss), float(opt_lib.global_norm(grads)), keep(grads))
+        del grads, loss
         gc.collect()
-        torch.cuda.empty_cache()
-    d_loss, d_gnorm = abs(first_loss - off_loss), abs(first_gnorm - off_gnorm) / off_gnorm
-    rel = {k: ((attn[True][k] - attn[False][k]).norm() / attn[False][k].norm()).item()
-           for k in sorted(attn[False])}
-    print(f"train bf16 full depth, first step, kernels on / off: loss {first_loss:.6f} / "
-          f"{off_loss:.6f} (diff {d_loss:.2e}, checks the forward only), grad norm "
-          f"{first_gnorm:.6f} / {off_gnorm:.6f} (rel diff {d_gnorm:.2e}); attention "
-          f"gradients, |on - off| / |off| by leaf: "
-          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
-    del attn
+        if batch["tokens"].device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out, (flipped_share(chosen[True], chosen[False]) if moe else None)
+
+
+def _attn_leaves(grads):
+    """Every attention leaf's gradient (K5's dq, dk and dv feed wq, wk and
+    wv), keyed ``sub/leaf``."""
+    return {f"{sub}/{k}": g for sub, p in sorted(grads["layers"].items())
+            if "attn" in p for k, g in sorted(p["attn"].items())}
+
+
+def hold_bf16_first_step(device, args, cfg, tokens, microbatches=1):
+    """The first step's loss and gradients at the trained depth in bf16,
+    kernels on against off from the run's initial state and batch (a MoE
+    model with its experts pinned): the loss to ``TRAIN_LOSS_TOL``, the grad
+    norm to ``TRAIN_GNORM_TOL`` relative, and each attention leaf of every
+    layer to ``ATTN_GRAD_TOL_BF16`` as |on - off| / |off|. Returns what it
+    read."""
+    from repro_torch.train import train_step as ts
+
+    params = ts.init_train_state(cfg, ts.TrainConfig(), torch.Generator(
+        device=device).manual_seed(args.seed), device=device).params
+    got, flipped = _on_off_grads(cfg, {"microbatches": microbatches}, params,
+                                 {"tokens": tokens}, cfg.moe is not None, _attn_leaves)
+    del params
+    (l_off, n_off, a_off), (l_on, n_on, a_on) = got[False], got[True]
+    d_loss, d_gnorm = abs(l_on - l_off), abs(n_on - n_off) / n_off
+    rel = {k: ((a_on[k] - a_off[k]).norm() / a_off[k].norm().clamp_min(1e-30)).item()
+           for k in a_off}
+    worst = max(rel, key=rel.get)
+    print(f"train {cfg.name} {cfg.dtype} at the trained depth, first step, kernels on / off"
+          + (" (experts pinned to the einsum path's)" if flipped is not None else "")
+          + f": loss {l_on:.6f} / {l_off:.6f} (diff {d_loss:.2e}), grad norm {n_on:.6f} / "
+          f"{n_off:.6f} (rel diff {d_gnorm:.2e}); attention gradients |on - off| / |off|: "
+          f"worst {worst} {rel[worst]:.2e} of {len(rel)} leaves"
+          + ("" if flipped is None else f"; without the pin the kernels-on router would "
+             f"have chosen other experts for {flipped:.4%} of the tokens at the first MoE "
+             f"layer (printed, not held)"))
     assert d_loss <= TRAIN_LOSS_TOL, f"loss kernels on/off {d_loss} > {TRAIN_LOSS_TOL}"
     assert d_gnorm <= TRAIN_GNORM_TOL, f"grad norm on/off {d_gnorm} > {TRAIN_GNORM_TOL}"
-    for k in ("wq", "wk", "wv"):
-        assert rel[k] <= ATTN_GRAD_TOL_BF16, (
-            f"bf16 gradient of {k}, kernels on/off: {rel[k]} > {ATTN_GRAD_TOL_BF16}")
+    for k, r in rel.items():
+        if k.rsplit("/", 1)[1] in ("wq", "wk", "wv"):
+            assert r <= ATTN_GRAD_TOL_BF16, (
+                f"bf16 gradient of {k}, kernels on/off: {r} > {ATTN_GRAD_TOL_BF16}")
+    return {"loss": d_loss, "gnorm": d_gnorm, "attn": rel[worst], "flipped": flipped}
 
-    save_attn_step(device, args, cfg, tokens)
 
-    # fp32 copies at full width, 2 layers: every gradient leaf
-    cfg2 = cfg.scaled(num_layers=2, dtype="float32")
-    params = ts.init_train_state(cfg2, tcfg, torch.Generator(device=device).manual_seed(
-        args.seed), device=device).params
-    got = {}
-    for on in (True, False):
-        tc = ts.TrainConfig(remat=True, use_kernels=on)
-        loss, _, grads = ts.loss_and_grads(cfg2, tc, params, tokens)
-        got[on] = (float(loss), grads)
+def hold_fp32(device, args, cfg, layers, tokens):
+    """Every gradient leaf in fp32 copies at full width and ``layers``
+    layers, kernels on against off (K1 and K5 on their ``fma`` route; a MoE
+    model with its experts pinned), relative to the leaf's largest value, to
+    ``GRAD_TOL_FP32``. Returns (worst leaf, its difference, the flipped
+    share)."""
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    cfg32 = cfg.scaled(num_layers=layers, dtype="float32")
+    params = ts.init_train_state(cfg32, ts.TrainConfig(), torch.Generator(
+        device=device).manual_seed(args.seed), device=device).params
+    got, flipped = _on_off_grads(cfg32, {}, params, {"tokens": tokens}, cfg.moe is not None,
+                                 lambda g: g)
+    del params
     worst, worst_key = 0.0, None
-    for key, (g_on, g_off) in zip(
-            _leaf_keys(got[True][1]), zip(opt_lib._leaves(got[True][1]),
-                                          opt_lib._leaves(got[False][1]))):
+    for key, (g_on, g_off) in zip(_leaf_keys(got[True][2]), zip(
+            opt_lib._leaves(got[True][2]), opt_lib._leaves(got[False][2]))):
         rel = (g_on - g_off).abs().max().item() / max(g_off.abs().max().item(), 1e-30)
-        assert rel <= GRAD_TOL_FP32, f"fp32 gradient {key}: rel diff {rel} > {GRAD_TOL_FP32}"
+        assert rel <= GRAD_TOL_FP32, (f"{cfg.name} fp32 gradient {key}: rel diff {rel} > "
+                                      f"{GRAD_TOL_FP32}")
         if rel >= worst:
             worst, worst_key = rel, key
-    print(f"train fp32 copies, full width, 2 layers, kernels on / off: loss "
-          f"{got[True][0]:.6f} / {got[False][0]:.6f}; worst gradient leaf {worst_key} "
-          f"rel diff {worst:.2e} (limit {GRAD_TOL_FP32})")
-    del got, params, grads
-    gc.collect()
-    torch.cuda.empty_cache()
+    print(f"train {cfg.name} fp32 copies, full width, {layers} layer(s), "
+          f"{tuple(tokens.shape)} tokens, kernels on / off"
+          + (" (experts pinned)" if flipped is not None else "")
+          + f": loss {got[True][0]:.6f} / {got[False][0]:.6f}; worst gradient leaf "
+          f"{worst_key} rel diff {worst:.2e} (limit {GRAD_TOL_FP32})"
+          + ("" if flipped is None else f"; flipped without the pin: {flipped:.4%} of "
+             f"the tokens at the first MoE layer"))
+    del got
+    if device.type == "cuda":
+        _free()
+    return worst_key, worst, flipped
+
+
+def train_arch(device, args, cfg, batch, seq_len, microbatches, fp32_layers, fp32_batch,
+               calls=None):
+    """One of ``TRAIN_RUNS``: the cut it trains (a ``reduced:`` line), its
+    memory reckoned, the run (:func:`train_run`, every K1 and K5 call of the
+    first step held on its own inputs), then kernels on against off: bf16
+    at the trained depth (:func:`hold_bf16_first_step`) and fp32 copies of
+    ``fp32_layers`` layers on the first ``fp32_batch`` sequences of the
+    first batch (:func:`hold_fp32`). Returns the run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, to_device
+
+    if cfg.num_layers != get_config(cfg.name).num_layers:
+        print(f"train {cfg.name}: {reduced_line(cfg.name, cfg)}")
+    reckon_train(device, cfg, batch, seq_len, microbatches)
+    run = train_run(device, args, cfg, batch, seq_len, microbatches,
+                    where=f"train {cfg.name}", calls=calls, hold_first=True)
+    first = {k: n for k, n in expected_launches(cfg, "train", microbatches, 1).items() if n}
+    assert {k: len(v) for k, v in run["held"].items()} == first, (run["held"].keys(), first)
+    tokens = to_device(SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                                  global_batch=batch, seed=args.seed))
+                       .batch(0), device)["tokens"]
+    hold_bf16_first_step(device, args, cfg, tokens, microbatches)
+    if device.type == "cuda":
+        _free()
+    hold_fp32(device, args, cfg, fp32_layers, tokens[:fp32_batch])
+    return run["counts"]
+
+
+def train_phase(device, args, timer):
+    """phi4-mini-3.8b, then each of ``TRAIN_RUNS`` (gemma2-2b at full width
+    and depth with sequences past its window; mixtral at every width with
+    all 8 experts, cut to 2 layers), trained and held (:func:`phi4_train`,
+    :func:`train_arch`); last, every bf16 kernel call of the two runs after
+    phi4's, recorded by signature, replayed against its plain version and
+    timed. Returns (each run's launch counts by path, the replayed rows)."""
+    paths = {"train": phi4_train(device, args)}
+    calls = collections.Counter()
+    for arch, batch, seq_len, micro, fp32_layers, fp32_batch in TRAIN_RUNS:
+        paths[f"train {arch}"] = train_arch(device, args, train_config(arch), batch, seq_len,
+                                            micro, fp32_layers, fp32_batch, calls=calls)
+    print(f"train: {len(calls)} distinct kernel call signatures in the runs of "
+          f"{', '.join(a for a, *_ in TRAIN_RUNS)}, replayed against the plain versions:")
+    replayed = dryrun_replay(device, timer, calls, label="train")
+    return paths, replayed
+
+
+def phi4_train(device, args):
+    """phi4-mini-3.8b trained at full width and depth (:func:`train_run`,
+    batch ``TRAIN_BATCH`` x 512, every launch on ``wgmma``), then the
+    gradients with the kernels on held against the einsum path: at full
+    depth in bf16, the first step's loss, grad norm and attention leaves
+    (:func:`hold_bf16_first_step`); ``remat_policy="save_attn"`` against
+    ``"nothing"``; leaf by leaf in fp32 copies at full width and 2 layers
+    (:func:`hold_fp32`). Returns the launch counts of the training run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, to_device
+
+    cfg = get_config("phi4-mini-3.8b")
+    total = train_run(device, args, cfg, TRAIN_BATCH, PROMPT)["counts"]
+    tokens = to_device(SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=PROMPT, global_batch=TRAIN_BATCH,
+        seed=args.seed)).batch(0), device)
+    hold_bf16_first_step(device, args, cfg, tokens["tokens"])
+    _free()
+    save_attn_step(device, args, cfg, tokens)
+    hold_fp32(device, args, cfg, 2, tokens["tokens"])
     return total
 
 
@@ -2686,12 +2944,14 @@ def recording_calls(calls):
 
 @contextlib.contextmanager
 def holding_calls(errs):
-    """K1's and K2's entries wrapped to hold each call's output against the
-    plain version on the same inputs, at the kernels phase's tolerances
-    (K1's plain version in slices, :func:`_plain_in_slices`); each call's
-    max abs error is appended to ``errs[entry]``. The plain versions launch
-    nothing, so the launch counts stay the path's own. Put back on exit."""
-    flash, decode = fa_k.flash_attention, dec_k.decode_attention
+    """K1's, K2's and K5's entries wrapped to hold each call's output
+    against the plain version on the same inputs, at the kernels phase's
+    tolerances (K1's and K5's plain versions in slices,
+    :func:`_plain_in_slices`; K5's delta from the forward's output where
+    the call hands that over); each call's max abs error is appended to
+    ``errs[entry]``. The plain versions launch nothing, so the launch counts
+    stay the path's own. Put back on exit."""
+    flash, decode, bwd = fa_k.flash_attention, dec_k.decode_attention, fab_k.flash_attention_bwd
 
     def held_flash(q, k, v, **kw):
         got = flash(q, k, v, **kw)
@@ -2707,11 +2967,27 @@ def holding_calls(errs):
             "held decode", got, dec_k.decode_attention_plain(q, k, v, mask, **kw), TOL[q.dtype]))
         return got
 
+    def held_bwd(q, k, v, dout, lse, delta=None, **kw):
+        # delta passed on as the caller passed it, so a recorder inside sees
+        # the caller's signature
+        got = bwd(q, k, v, dout, lse, **kw) if delta is None else bwd(q, k, v, dout, lse,
+                                                                        delta, **kw)
+        out = kw.pop("out", None)
+        delta = fab_k.delta_of(dout, out) if delta is None else delta
+        want = _plain_in_slices(fab_k.flash_attention_bwd_plain, (q, k, v, dout, lse, delta),
+                                "qkkqqq", **kw)
+        errs.setdefault("flash_attention_bwd", []).append(max(
+            _check(f"held flash_bwd {w}", x, y, BWD_TOL[q.dtype])
+            for w, x, y in zip(("dq", "dk", "dv"), got, want)))
+        return got
+
     fa_k.flash_attention, dec_k.decode_attention = held_flash, held_decode
+    fab_k.flash_attention_bwd = held_bwd
     try:
         yield errs
     finally:
         fa_k.flash_attention, dec_k.decode_attention = flash, decode
+        fab_k.flash_attention_bwd = bwd
 
 
 def _laid_out(sig, values):
@@ -2933,23 +3209,32 @@ def dryrun_kernel_shapes(device, timer):
 
 
 def _k5_d256_shape(gen, device, timer):
-    """K5 on its ``fma`` route at gemma2-2b's train microbatch (q/dout (1,
-    8, 4096, 256), k/v (1, 4, 4096, 256) bf16, causal, soft cap 50, delta
-    inside from ``out``) against its plain version, timed beside the SDPA
-    backward alone (``torch.autograd.grad`` after one forward), which has no
-    soft cap and runs without it; where PyTorch refuses D 256 there, the row
-    says so."""
+    """K5 at gemma2-2b's train microbatch (q/dout (1, 8, 4096, 256), k/v (1,
+    4, 4096, 256) bf16, causal, soft cap 50, delta inside from ``out``) on
+    its ``mma`` route against its plain version, timed in the same call
+    beside the bf16 D 256 ``fma`` instance this head dim ran on before (the
+    wrapper's private launch helper, the route named), the plain version and
+    the SDPA backward alone (``torch.autograd.grad`` after one forward),
+    which has no soft cap and runs without it; where PyTorch refuses D 256
+    there, the row says so."""
     dt = torch.bfloat16
     b, h, kv, s, d, cap = 1, 8, 4, 4096, 256, 50.0
     (q, k, v, dout, lse, delta), out = _bwd_inputs(gen, b, h, kv, s, s, d, dt, device,
                                                    softcap=cap)
-    assert fab_k.route(dt, d) == "fma"
+    assert fab_k.route(dt, d) == "mma"
     fn = lambda: fab_k.flash_attention_bwd(q, k, v, dout, lse, out=out, softcap=cap)  # noqa: E731
+    fma = lambda: fab_k._launch(q, k, v, dout, lse, None, out, "fma", softcap=cap)  # noqa: E731
     want = fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta, softcap=cap)
+    before = dict(fab_k.launches_by_route)
     err = max(_check(f"dryrun flash_bwd[d256] {w}", x, y, BWD_TOL[dt])
               for w, x, y in zip(("dq", "dk", "dv"), fn(), want))
+    fma_err = max(_check(f"dryrun flash_bwd[d256, fma] {w}", x, y, BWD_TOL[dt])
+                  for w, x, y in zip(("dq", "dk", "dv"), fma(), want))
+    assert {r: fab_k.launches_by_route[r] - before[r] for r in before} == {
+        "fma": 1, "mma": 1, "wgmma": 0}
     del want
-    ms = timer(fn, iters=7)
+    ms, fma_ms = timer(fn, iters=7), timer(fma, iters=7)
+    ms2 = timer(fn, iters=7)
     dev_ms, _ = device_ms(fn, iters=7)
     plain_ms = timer(lambda: fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
                                                              softcap=cap), warmup=1, iters=3)
@@ -2971,9 +3256,14 @@ def _k5_d256_shape(gen, device, timer):
     pair_flops = 2 * d * b * h * _visible_pairs(s, s, True, None, 0)
     nbytes = (3 * b * h * s * d + 4 * b * kv * s * d) * 2 + 2 * 4 * b * h * s
     t_b, t_f = nbytes / HBM_BW * 1e3, 5 * pair_flops / PEAK_FLOPS[dt] * 1e3
+    print(f"  dryrun flash_bwd[d256]: route mma {ms:.4f} / {ms2:.4f} ms (timed before and "
+          f"after the parent), the parent fma instance {fma_ms:.4f} ms (max abs err "
+          f"{fma_err:.3e}), in the same call; the design's 9 products at 989 TFLOP/s "
+          f"{9 * pair_flops / PEAK_FLOPS[dt] * 1e3:.4f} ms")
     return {"shape": f"q/dout({b},{h},{s},{d}) kv({b},{kv},{s},{d}) bf16 causal softcap 50, "
-                     f"route fma (gemma2-2b train microbatch)",
-            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     f"route mma (gemma2-2b train microbatch)",
+            "max_abs_err": err, "ms": ms, "ms_after_parent": ms2, "device_ms": dev_ms,
+            "parent_fma_ms": fma_ms, "parent_fma_max_abs_err": fma_err, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_note": note,
             "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
 
@@ -3069,6 +3359,12 @@ def main(argv=None):
                   f"(most {max(spills, default=0)} bytes)")
         for line in sorted(set(re.findall(r"^.*(?:wgmma|setmaxnreg).*$", log, re.M))):
             print(f"  ptxas {src}: {line.strip()[:200]}")
+        for fn, frame, st, ld, nreg in re.findall(
+                r"Function properties for (\S*mma_kernel\S*)\n\s*(\d+) bytes stack frame, "
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
+                log):
+            print(f"  ptxas {src}: {fn}: {nreg} registers, {frame} bytes stack frame, "
+                  f"{st} bytes spill stores, {ld} bytes spill loads")
 
     kernels = []
     if args.phase in ("all", "kernels"):
@@ -3121,7 +3417,10 @@ def main(argv=None):
         for kd in kernels:
             kd["archs_replayed"] = [r for r in archs_replayed if r["kernel"] == kd["name"]]
     if args.phase in ("all", "train"):
-        paths["train"] = train_phase(device, args)
+        train_paths, train_replayed = train_phase(device, args, Timer(device))
+        paths.update(train_paths)
+        for kd in kernels:
+            kd["train_replayed"] = [r for r in train_replayed if r["kernel"] == kd["name"]]
     if args.phase in ("all", "sim"):
         paths["sim"] = sim_phase(card)
     if args.phase in ("all", "dryrun"):

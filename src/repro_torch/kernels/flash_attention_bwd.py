@@ -15,10 +15,13 @@ by :func:`route` from the dtype and the head dim alone:
 * ``wgmma``: bf16 at D = 64 and 128 (the training shapes),
   ``csrc/flash_attention_bwd_sm90.cu``: TMA rings, producer and consumer
   warpgroups, every product on ``wgmma``;
-* ``mma``: bf16 at D = 16, ``csrc/flash_attention_bwd.cu``, ``mma.sync``
-  with ``cp.async`` copies;
-* ``fma``: fp32, and bf16 at D = 256, ``csrc/flash_attention_bwd.cu``, FMAs
-  on the CUDA cores.
+* ``mma``: bf16 at D = 16 and 256, ``csrc/flash_attention_bwd.cu``,
+  ``mma.sync`` with ``cp.async`` copies (at D 256 two warps share each 16
+  kv rows of the dk/dv kernel, each holding half of D of dk and dv);
+* ``fma``: fp32, ``csrc/flash_attention_bwd.cu``, FMAs on the CUDA cores.
+  Its bf16 D = 256 instance, the route that head dim took before the
+  ``mma`` route took it, is reached only through :func:`_launch` with the
+  route named, as a yardstick to time the ``mma`` route against.
 
 The kernels' design notes are at the top of the ``.cu`` sources.
 
@@ -63,7 +66,7 @@ def route(dtype: torch.dtype, d: int) -> str:
     build or launch error raises, it never moves a call to another route."""
     if dtype == torch.bfloat16 and d in (64, 128):
         return "wgmma"
-    if dtype == torch.bfloat16 and d == 16:
+    if dtype == torch.bfloat16 and d in (16, 256):
         return "mma"
     return "fma"
 
@@ -118,7 +121,18 @@ def flash_attention_bwd_plain(q, k, v, dout, lse, delta=None, *, out=None,
 
 
 def _operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernels read it: in place where its last dim is
+    contiguous and its rows start on 16 bytes (:func:`_aligned_view`), else
+    a contiguous copy, counted in ``copied_bytes``. A dim of size 1 addresses
+    nothing, so its stride is first set to the tensor's span: autograd hands
+    over the dout of a (1, S, H, D) output's transpose with a batch stride
+    of 1 element, which would otherwise fail the 16-byte test and be
+    copied."""
     global copied_bytes
+    if any(n == 1 for n in x.shape[:-1]):
+        span = max([st * n for st, n in zip(x.stride(), x.shape) if n > 1], default=1)
+        x = x.as_strided(x.shape, [span if n == 1 else st for st, n in
+                                   zip(x.stride()[:-1], x.shape[:-1])] + [x.stride(-1)])
     y = _aligned_view(x)
     if y is not x:
         copied_bytes += y.numel() * y.element_size()
@@ -142,13 +156,12 @@ def flash_attention_bwd(q, k, v, dout, lse, delta=None, *, out=None,
     head's G query heads to (B, KV, S, D). Operands may be views whose last
     dim is contiguous (the transposes of the model's tensors are read in
     place); outputs take the inputs' memory layout. bf16 runs on the tensor
-    cores (D <= 128), fp32 as fp32 FMAs (:func:`route`).
+    cores, fp32 as fp32 FMAs (:func:`route`).
 
     ``delta=None`` with the forward's output ``out`` (B, H, Sq, D): delta =
     rowsum(dout * out) is part of the call. The ``wgmma`` route computes it
     in its dq kernel, from the dout tile it stages anyway (no separate pass);
     the other routes run :func:`delta_of` first."""
-    global launches
     if delta is None and (out is None or out.shape != q.shape):
         raise ValueError("flash_attention_bwd needs delta, or the forward's output "
                          "of q's shape to compute it from")
@@ -156,6 +169,19 @@ def flash_attention_bwd(q, k, v, dout, lse, delta=None, *, out=None,
         return flash_attention_bwd_plain(q, k, v, dout, lse, delta, out=out, causal=causal,
                                          window=window, softcap=softcap,
                                          scale=scale, q_offset=q_offset)
+    return _launch(q, k, v, dout, lse, delta, out, route(q.dtype, q.shape[-1]),
+                   causal=causal, window=window, softcap=softcap, scale=scale,
+                   q_offset=q_offset)
+
+
+def _launch(q, k, v, dout, lse, delta, out, rt: str, *, causal: bool = True,
+            window: Optional[int] = None, softcap: float = 0.0,
+            scale: Optional[float] = None, q_offset: int = 0):
+    """:func:`flash_attention_bwd` on CUDA tensors, on the route ``rt``.
+    Only that function and one timing of the bf16 D = 256 ``fma`` instance
+    beside the ``mma`` route call it; the C entry point refuses (-4) a route
+    that does not take the dtype or head dim."""
+    global launches
     b, h, sq, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -168,7 +194,6 @@ def flash_attention_bwd(q, k, v, dout, lse, delta=None, *, out=None,
             or dout.shape != q.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} dout{tuple(dout.shape)}")
-    rt = route(q.dtype, d)
     from_out = delta is None and rt == "wgmma"
     if delta is None and not from_out:
         delta = delta_of(dout, out)

@@ -219,7 +219,7 @@ def test_flash_bwd_row_that_sees_no_column_matches_pallas(bf16):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 256, "fma"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 256, "mma"),
     (torch.float32, 16, "fma"), (torch.float32, 64, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
 ])
@@ -232,7 +232,9 @@ def test_flash_bwd_route_by_dtype_and_head_dim(dtype, d, want):
 def test_flash_bwd_routes_are_the_c_entry_points_codes():
     """The wrapper hands the C entry point ``ROUTES.index(route)``; the entry
     point's switch reads 0 = fma, 1 = mma, 2 = wgmma and refuses a route off
-    its dtype or head dim; the mma kernels are built for D 16 alone."""
+    its dtype or head dim; the mma kernels are built for D 16 and 256 (at D
+    256 two warps share each 16 kv rows of the dk/dv kernel), and the bf16
+    D 256 fma instance stays for the private launch helper alone."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention_bwd as fab_k
@@ -240,12 +242,18 @@ def test_flash_bwd_routes_are_the_c_entry_points_codes():
     entry = src[src.index('extern "C" int flash_attention_bwd('):]
     assert "if (dtype == 0) return launch_fma_d<float>(a, st);" in entry
     assert "return D == 256 ? launch_fma<__nv_bfloat16, 256" in entry
-    assert "case 1: return dtype == 1 && D == 16 ? launch_mma(a, st) : -4;" in entry
+    assert ("case 1: return dtype == 1 && (D == 16 || D == 256) ? launch_mma_d(a, st) : -4;"
+            in entry)
     assert ("case 2: return dtype == 1 && (D == 64 || D == 128) ? "
             "flash_attention_bwd_sm90(a, st) : -4;") in entry
     assert "default: return -4;" in entry
-    assert re.findall(r"mma_kernel<(\w+), ", src[src.index("int launch_mma("):]) == ["D", "D"]
-    assert "constexpr int D = 16," in src[src.index("int launch_mma("):]
+    launch = src[src.index("int launch_mma("):src.index('extern "C"')]
+    assert re.findall(r"mma_kernel<(\w+), ", launch) == ["D", "D"]
+    switch = launch[launch.index("int launch_mma_d("):]
+    assert re.findall(r"case (\d+): return launch_mma<(\d+), ", switch) == [
+        ("16", "16"), ("256", "256")]
+    assert "launch_mma<256, 32, 32, 2>" in switch and "launch_mma<16, 64, 64, 1>" in switch
+    assert "default: return -4;" in switch
     assert fab_k.ROUTES == ("fma", "mma", "wgmma")
 
 
@@ -284,3 +292,50 @@ def test_flash_bwd_delta_from_out_matches_given_delta(bf16, window, softcap):
         fab_k.flash_attention_bwd(q, k, v, dout, lse)
     with pytest.raises(ValueError, match="delta"):
         fab_k.flash_attention_bwd(q, k, v, dout, lse, out=out[:, :, :1])
+
+
+def test_flash_bwd_reads_the_dout_of_a_batch_of_one_in_place(monkeypatch):
+    """At a microbatch of one sequence (gemma2-2b's train run on the card)
+    autograd hands K5 the dout of the attention output's transpose with a
+    batch stride of 1 element. A dim of size 1 addresses nothing: K5's
+    operand view resets that stride and reads dout in place, where the
+    16-byte test alone would copy it (3.27 GB over gemma2-2b's 3 steps)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention_bwd as fab_k
+    from repro_torch.models import init_params
+    from repro_torch.models import model as model_lib
+    cfg = get_smoke_config("gemma2-2b").scaled(dtype="bfloat16")
+    params = init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    for p in _param_leaves(params):
+        p.requires_grad_(True)
+    seen, bwd = [], fab_k.flash_attention_bwd
+
+    def spy(q, k, v, dout, *a, **kw):
+        seen.append(dout)
+        return bwd(q, k, v, dout, *a, **kw)
+    monkeypatch.setattr(fab_k, "flash_attention_bwd", spy)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 24), generator=torch.Generator().manual_seed(0))
+    loss, _ = model_lib.loss_fn(cfg, params, {"tokens": tokens}, use_kernels=True)
+    loss.backward()
+    assert len(seen) == cfg.num_layers
+    odd = [d for d in seen if (d.stride(0) * d.element_size()) % 16]
+    assert odd, [d.stride() for d in seen]
+    for d in odd:
+        assert fa_k._aligned_view(d) is not d              # the 16-byte test alone copies
+        before = fab_k.copied_bytes
+        y = fab_k._operand(d)
+        assert fab_k.copied_bytes == before and y.data_ptr() == d.data_ptr()
+        assert torch.equal(y, d) and all((st * 2) % 16 == 0 for st in y.stride()[:-1])
+    # a row stride off 16 bytes is still copied, and counted
+    x = torch.zeros(2, 4, 8, 20, dtype=torch.bfloat16)[..., :12]
+    before = fab_k.copied_bytes
+    assert fab_k._operand(x).is_contiguous()
+    assert fab_k.copied_bytes == before + x.numel() * 2
+
+
+def _param_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _param_leaves(v)
+    else:
+        yield tree

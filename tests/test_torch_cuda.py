@@ -422,6 +422,77 @@ def test_flash_bwd_wgmma_route_vs_plain(device, contiguous, b, h, kv, sq, s, d, 
             torch.testing.assert_close(g_.float(), w_.float(), atol=atol, rtol=tol)
 
 
+@pytest.mark.parametrize("contiguous", [False, True], ids=["strided", "contiguous"])
+@pytest.mark.parametrize("b,h,kv,sq,s,window,softcap,q_offset,causal", [
+    (1, 8, 4, 256, 256, None, 50.0, 0, True),      # gemma2-2b's soft cap, G 2
+    (1, 8, 4, 200, 200, 64, 0.0, 0, True),         # window 64, ragged S
+    (2, 4, 4, 192, 192, None, 50.0, 0, True),      # G 1
+    (1, 16, 2, 256, 256, 64, 50.0, 0, True),       # G 8, window with soft cap
+    (2, 4, 2, 90, 190, 70, 0.0, 100, True),        # window with q_offset
+    (1, 4, 2, 100, 300, None, 0.0, 0, False),      # non-causal
+    (2, 4, 2, 64, 200, 32, 0.0, 220, True)])       # rows that see no column
+def test_flash_bwd_mma_route_at_d256_vs_plain(device, contiguous, b, h, kv, sq, s, window,
+                                              softcap, q_offset, causal):
+    """bf16 at D 256 (gemma2-2b's head dim) runs on the ``mma.sync`` kernels,
+    on the model's strided views and on contiguous tensors, with delta given
+    and with delta computed from the forward's output; a row that sees no
+    column gives dq = 0."""
+    from repro_torch.kernels import flash_attention_bwd as fab_k
+    gen = torch.Generator(device=device).manual_seed(11)
+    bf, d = torch.bfloat16, 256
+    if contiguous:
+        q, dout = (torch.randn((b, h, sq, d), generator=gen, device=device).to(bf)
+                   for _ in range(2))
+        k, v = (torch.randn((b, kv, s, d), generator=gen, device=device).to(bf)
+                for _ in range(2))
+    else:
+        q, dout = (torch.randn((b, sq, h, d), generator=gen, device=device).to(bf)
+                   .transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn((b, s, kv, d), generator=gen, device=device).to(bf)
+                .transpose(1, 2) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    out, lse = fa_k.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = fab_k.delta_of(dout, out)
+    assert fab_k.route(bf, d) == "mma"
+    before = dict(fab_k.launches_by_route)
+    given = fab_k.flash_attention_bwd(q, k, v, dout, lse, delta, **kw)
+    inside = fab_k.flash_attention_bwd(q, k, v, dout, lse, out=out, **kw)
+    assert fab_k.launches_by_route["mma"] == before["mma"] + 2
+    assert sum(fab_k.launches_by_route.values()) == sum(before.values()) + 2
+    want = fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta, **kw)
+    tol = BWD_TOL[bf]
+    for got in (given, inside):
+        for g_, w_, ref_in in zip(got, want, (q, k, v)):
+            assert g_.dtype == bf and g_.shape == ref_in.shape
+            atol = tol * min(1.0, w_.float().abs().max().item())
+            torch.testing.assert_close(g_.float(), w_.float(), atol=atol, rtol=tol)
+    blind = fa_k.blind_rows(sq, s, window, q_offset, device=device)
+    assert bool(blind.any()) == (q_offset == 220)
+    assert (given[0][:, :, blind] == 0).all()
+
+
+def test_flash_bwd_fma_instance_at_d256_through_the_private_helper(device):
+    """The bf16 D 256 ``fma`` instance, which ``route`` no longer picks, is
+    reached only through ``_launch`` with the route named (as ``chip_smoke.py``
+    times it beside the ``mma`` route), and gives the plain version's
+    gradients."""
+    from repro_torch.kernels import flash_attention_bwd as fab_k
+    gen = torch.Generator(device=device).manual_seed(12)
+    bf = torch.bfloat16
+    q, dout = (torch.randn((1, 8, 128, 256), generator=gen, device=device).to(bf)
+               for _ in range(2))
+    k, v = (torch.randn((1, 4, 128, 256), generator=gen, device=device).to(bf)
+            for _ in range(2))
+    out, lse = fa_k.flash_attention_plain(q, k, v, return_lse=True, softcap=50.0)
+    before = dict(fab_k.launches_by_route)
+    got = fab_k._launch(q, k, v, dout, lse, None, out, "fma", softcap=50.0)
+    assert fab_k.launches_by_route["fma"] == before["fma"] + 1
+    want = fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, out=out, softcap=50.0)
+    for g_, w_ in zip(got, want):
+        atol = BWD_TOL[bf] * min(1.0, w_.float().abs().max().item())
+        torch.testing.assert_close(g_.float(), w_.float(), atol=atol, rtol=BWD_TOL[bf])
+
+
 @pytest.mark.parametrize("dtype,d,rt,from_out", [
     (torch.bfloat16, 128, "fma", 0), (torch.bfloat16, 128, "mma", 0),
     (torch.bfloat16, 64, "mma", 0), (torch.float32, 128, "wgmma", 0),
