@@ -28,8 +28,12 @@ Phases, each of which fails the run with a non-zero exit code:
    see no column (a window and a ``q_offset`` past ``S - 1 + window``) must
    give the mean of V and ``lse = -1e30`` on every route. The backward is
    checked with delta given and with delta computed inside from the
-   forward's output (as ``ops`` calls it), bf16 at D 256 on its ``mma``
-   route among its cases. The WKV recurrence runs through
+   forward's output (as ``ops`` calls it), bf16 at D 256 on its ``wgmma``
+   route among its cases. Decode attention's bf16 instance runs both
+   products on the tensor cores: its cases span G 1-8 at D 64, 128 and 256,
+   with prefix and scattered masks, all-masked rows, soft cap 50 and splits
+   1-8, and it is timed at the served shapes of qwen3-32b (G 8), musicgen
+   (D 64) and gemma2-2b (D 256) beside SDPA with ``attn_mask``. The WKV recurrence runs through
    both entries: the folded one of the reference's signature, and the
    model-layout one on (B, S, H, D) views in bf16 / fp32, which must equal
    the folded entry bit for bit. Flash and decode attention, the backward and
@@ -98,7 +102,7 @@ Phases, each of which fails the run with a non-zero exit code:
    bf16 limits, K1 and K5 launches, step time and memory of each). Then, the
    same way, each memory reckoned first: gemma2-2b at full width and depth
    (2 x 5120 tokens in 2 microbatches: past its 4096 window, so the local
-   layers' window masks pairs in K1 and K5; K1 and K5 on ``mma`` at D 256)
+   layers' window masks pairs in K1 and K5; K1 on ``mma`` and K5 on ``wgmma`` at D 256)
    and mixtral-8x7b at every width with all 8 experts, cut to 2 layers (8 x
    512; ``wgmma``; the loss with its load-balance term), every K1 and K5
    call of their first steps held against the plain version on its own
@@ -425,7 +429,7 @@ def assert_k3_tma(where, n):
 
 
 # the route every K5 launch of a bf16 run must take, by head dim
-K5_ROUTE_BY_HEAD_DIM = {64: "wgmma", 128: "wgmma", 256: "mma"}
+K5_ROUTE_BY_HEAD_DIM = {64: "wgmma", 128: "wgmma", 256: "wgmma"}
 
 
 def assert_k5_wgmma(where, n):
@@ -454,19 +458,30 @@ def call_ms(fn, warmup: int = 3, iters: int = 15) -> float:
     return statistics.median(times)
 
 
+def complete_capture(rows, iters: int) -> bool:
+    """Whether a profile of ``iters`` identical calls holds every launch:
+    at least one kernel, and each kernel seen a whole number of times a
+    call. CUPTI drops records now and then (an empty profile, or one kernel
+    seen once in 7 calls), and such a profile reads far low."""
+    return bool(rows) and all(count % iters == 0 for _, count, _ in rows)
+
+
 def device_ms(fn, iters: int = 15, tries: int = 3, label: str = ""):
     """Device time of one call: the kernels' own time under
     ``torch.profiler``, summed over every kernel the call launches, with L2
     flushed before each call (by a ``bitwise_not_`` over 256 MB, whose
     kernel is left out). Returns (ms a call, kernels a call). A profile that
-    recorded no kernel at all (CUPTI drops a session now and then) is taken
-    again, up to ``tries`` times. With a ``label``, each kernel's time is
-    printed."""
+    lost launches (:func:`complete_capture`) is taken again, up to
+    ``tries`` times; if every one did, the time is taken with CUDA events
+    around each call instead (the device's time from the flush's end to the
+    call's last kernel, gaps included) and the kernels a call are None.
+    With a ``label``, each kernel's time is printed."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -474,12 +489,31 @@ def device_ms(fn, iters: int = 15, tries: int = 3, label: str = ""):
                 fn()
             torch.cuda.synchronize()
         rows = [r for r in _profile_rows(prof) if "bitwise_not" not in r[2]]
-        if rows:
+        if complete_capture(rows, iters):
             for dev_us, count, key in rows if label else ():
                 print(f"    {label}: {dev_us / 1e3 / iters:.4f} ms a call, "
                       f"{count / iters:g} a call: {key[:100]}")
             return sum(r[0] for r in rows) / 1e3 / iters, sum(r[1] for r in rows) / iters
-    raise AssertionError(f"the profiler saw no kernel of the timed call in {tries} tries")
+        seen.append(sum(r[1] for r in rows))
+    times = []
+    for _ in range(iters):
+        flush.bitwise_not_()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    ms = statistics.median(times)
+    print(f"    {label or 'device_ms'}: the profiler lost launches in {tries} tries "
+          f"(kernels seen in {iters} calls: {seen}); CUDA events instead: {ms:.4f} ms a call")
+    return ms, None
+
+
+def _per_call(kernels):
+    """How :func:`device_ms`'s kernels a call read in a line."""
+    return "CUDA events" if kernels is None else f"{kernels:g} kernels a call"
 
 
 def _rand(gen, shape, dtype, device):
@@ -690,7 +724,25 @@ def decode_cases():
         ("g6 splits 2 fp32", f32, 2, 4, 6, 700, 64, 0.0, [699, 300], 2),
         ("g7 bf16", bf, 2, 8, 7, 1024, 128, 0.0, [520, 1000], None),
         ("random mask g8 splits 8 bf16", bf, 3, 2, 8, 600, 128, 0.0, None, 8),
-    ]
+    ] + tensor_core_decode_cases()
+
+
+def tensor_core_decode_cases():
+    """The bf16 (tensor-core) instance at G 1, 2, 3, 4, 5 and 8 and D 64,
+    128 and 256, over 777 slots (not a multiple of the 64-row stage): by G,
+    a prefix mask with an all-masked row (G 1, 4), a scattered mask (G 2,
+    5), a prefix mask past one stage (G 3, 8); soft cap 50 at G 2 and 8;
+    splits 1..8 in turn."""
+    cases = []
+    for d in (64, 128, 256):
+        for i, g in enumerate((1, 2, 3, 4, 5, 8)):
+            lengths = {1: [0, 777 - 13 * g], 4: [0, 777 - 13 * g], 2: None, 5: None,
+                       3: [1 + 50 * g, 777], 8: [1 + 50 * g, 777]}[g]
+            cap = 50.0 if g in (2, 8) else 0.0
+            splits = 1 + (3 * i + d // 64) % 8
+            cases.append((f"tc d{d} g{g} splits {splits}" + (" cap50" if cap else ""),
+                          torch.bfloat16, 2, 2, g, 777, d, cap, lengths, splits))
+    return cases
 
 
 def _prefix_mask(lengths, s, device):
@@ -722,13 +774,30 @@ def check_decode(device, timer):
         e2 = _check(f"decode[{name}] m", m, r_m, TOL[dt])
         e3 = _check(f"decode[{name}] l", l, r_l, TOL[dt])
         worst[dt] = max(worst[dt], e1)
-        print(f"  decode {name:31s} out err {e1:.3e}  m err {e2:.3e}  l err {e3:.3e}")
+        print(f"  decode {name:31s} {dec_k.route(dt)} out err {e1:.3e}  m err {e2:.3e}  "
+              f"l err {e3:.3e}")
         empty = ~mask.any(dim=1)
         if empty.any():                     # what the TPU kernel gives there
             assert (m[empty] == dec_k.NEG_INF).all() and (l[empty] == s).all(), name
             _check(f"decode[{name}] mean of V", out[empty],
                    v.float().mean(dim=1)[empty][:, :, None, :].expand(-1, -1, g, -1),
                    TOL[dt])
+
+    # masked slots holding NaN (a cache's unwritten slots may hold anything):
+    # neither the TMA path (a prefix mask, whose last box runs past the share)
+    # nor the per-row path (a scattered mask) lets them into the output
+    for masks in ("prefix", "scattered"):
+        for d in (64, 128, 256):
+            q = _rand(gen, (2, 2, 8, d), torch.bfloat16, device)
+            k, v = (_rand(gen, (2, 300, 2, d), torch.bfloat16, device) for _ in range(2))
+            mask = (_prefix_mask([77, 250], 300, device) if masks == "prefix"
+                    else torch.rand((2, 300), generator=gen, device=device) < 0.3)
+            bad = (~mask)[:, :, None, None].expand_as(k)
+            want = dec_k.decode_attention_plain(q, k, v, mask)
+            got = dec_k.decode_attention(q, k.masked_fill(bad, float("nan")),
+                                         v.masked_fill(bad, float("nan")), mask)
+            e1 = _check(f"decode[NaN in masked slots, {masks}, d{d}]", got, want, TOL[torch.bfloat16])
+            print(f"  decode NaN in masked slots, {masks} mask, d{d}: out err {e1:.3e}")
 
     dt = torch.bfloat16
     g = H // KV
@@ -744,16 +813,7 @@ def check_decode(device, timer):
     k_call_ms = call_ms(lambda: dec_k.decode_attention(q, k, v, mask))
     k_device_ms, k_kernels = device_ms(lambda: dec_k.decode_attention(q, k, v, mask))
     plain_ms = timer(lambda: dec_k.decode_attention_plain(q, k, v, mask))
-    ql = q.reshape(B, H, 1, D)
-    kl, vl = k.transpose(1, 2), v.transpose(1, 2)
-    am = mask[:, None, None, :]
-    try:
-        lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am,  # noqa: E731
-                                                     enable_gqa=True)
-        lib()
-    except (TypeError, RuntimeError):
-        ke, ve = (t.repeat_interleave(g, dim=1) for t in (kl, vl))
-        lib = lambda: F.scaled_dot_product_attention(ql, ke, ve, attn_mask=am)  # noqa: E731
+    lib = _sdpa_decode(q, k, v, mask)
     _check("decode[timed] vs library", out.reshape(B, H, 1, D), lib(), TOL[dt])
     library_ms = timer(lib)
     lib_call_ms = call_ms(lib)
@@ -765,6 +825,7 @@ def check_decode(device, timer):
     flops = 4 * g * D * KV * n_valid
     t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    served = [_time_decode(gen, device, timer, *shape) for shape in DECODE_SERVED_SHAPES]
     return {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -782,7 +843,65 @@ def check_decode(device, timer):
         "all_slots_bound_ms": (2 * B * MAX_LEN * KV * D * es) / HBM_BW * 1e3,
         "max_abs_err_all_bf16": worst[torch.bfloat16],
         "max_abs_err_all_fp32": worst[torch.float32],
+        "served_shapes": served,
     }
+
+
+# K2 at the other served shapes over 1024 slots, prompt + 8 valid a row:
+# (label, kv heads, G, D, soft cap)
+DECODE_SERVED_SHAPES = (("qwen3-32b G 8", 8, 8, 128, 0.0), ("musicgen D 64 G 1", 24, 1, 64, 0.0),
+                        ("gemma2-2b D 256 G 2 cap 50", 4, 2, 256, 50.0))
+
+
+def _decode_bound(b, kv, g, d, n_valid_total, s, es=2):
+    """(bound ms, bound_by): the valid slots' K and V, q and out, the mask;
+    4 G D FLOPs a valid slot and kv head."""
+    nbytes = 2 * n_valid_total * kv * d * es + 2 * b * kv * g * d * es + b * s
+    t_b = nbytes / HBM_BW * 1e3
+    t_f = 4 * g * d * kv * n_valid_total / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def _sdpa_decode(q, k, v, mask):
+    """The SDPA call that computes K2's function (no soft cap), q (B, KV, G,
+    D) and the (B, S, KV, D) caches as they lie, the mask as ``attn_mask``."""
+    b, kv, g, d = q.shape
+    ql = q.reshape(b, kv * g, 1, d)
+    kl, vl = k.transpose(1, 2), v.transpose(1, 2)
+    am = mask[:, None, None, :]
+    try:
+        F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am,  # noqa: E731
+                                                      enable_gqa=True)
+    except (TypeError, RuntimeError):
+        ke, ve = (t.repeat_interleave(g, dim=1) for t in (kl, vl))
+        return lambda: F.scaled_dot_product_attention(ql, ke, ve, attn_mask=am)  # noqa: E731
+
+
+def _time_decode(gen, device, timer, label, kv, g, d, cap):
+    """K2 (bf16) at a served shape over ``MAX_LEN`` slots, ``PROMPT + 8``
+    valid a row, against its plain version, timed beside SDPA with
+    ``attn_mask`` (without the soft cap) and the bound."""
+    dt = torch.bfloat16
+    q = _rand(gen, (B, kv, g, d), dt, device)
+    k = _rand(gen, (B, MAX_LEN, kv, d), dt, device)
+    v = _rand(gen, (B, MAX_LEN, kv, d), dt, device)
+    mask = _prefix_mask([PROMPT + 8] * B, MAX_LEN, device)
+    fn = lambda: dec_k.decode_attention(q, k, v, mask, softcap=cap)  # noqa: E731
+    err = _check(f"decode[{label}]", fn(), dec_k.decode_attention_plain(q, k, v, mask,
+                                                                        softcap=cap), TOL[dt])
+    ms = timer(fn)
+    library_ms = timer(_sdpa_decode(q, k, v, mask))
+    bound, by = _decode_bound(B, kv, g, d, B * (PROMPT + 8), MAX_LEN)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = dec_k.num_splits(B, kv, MAX_LEN, sms)
+    print(f"  decode[{label}] q({B},{kv},{g},{d}) over {MAX_LEN} slots, {PROMPT + 8} valid: "
+          f"{ms:.4f} ms, SDPA (attn_mask, no cap) {library_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({by}); splits {splits}, route {dec_k.route(dt)}, err {err:.3e}")
+    return {"shape": f"q({B},{kv},{g},{d}) kv({B},{MAX_LEN},{kv},{d}) bf16 cap {cap:g}, "
+                     f"{PROMPT + 8} valid slots ({label})",
+            "ms": ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": err, "splits": splits}
 
 
 # ----------------------------------------------------------------------
@@ -1148,16 +1267,19 @@ def flash_bwd_cases():
         ("wgmma blind rows d128 g3", bf, 2, 6, 2, 64, 200, 128, 32, 0.0, 220, True),
         ("wgmma sq3 d64 g3 contiguous", bf, 2, 6, 2, 3, 3, 64, None, 0.0, 0, True),
         ("wgmma train d128 contiguous", bf, 2, H, KV, PROMPT, PROMPT, D, None, 0.0, 0, True),
-        # the mma route at D 256 (gemma2-2b's head dim): soft cap 50, window 64
-        # with ragged S, G 1 / 2 / 8, window with q_offset, rows that see no
-        # column, non-causal, contiguous tensors
-        ("mma d256 window64 ragged s200 g2", bf, 1, 8, 4, 200, 200, 256, 64, 0.0, 0, True),
-        ("mma d256 softcap50 g1", bf, 2, 4, 4, 192, 192, 256, None, 50.0, 0, True),
-        ("mma d256 window64 softcap50 g8", bf, 1, 16, 2, 256, 256, 256, 64, 50.0, 0, True),
-        ("mma d256 window70 q_offset100 g2", bf, 2, 4, 2, 90, 190, 256, 70, 0.0, 100, True),
-        ("mma d256 blind rows g2", bf, 2, 4, 2, 64, 200, 256, 32, 0.0, 220, True),
-        ("mma d256 non-causal sq100 s300 g2", bf, 1, 4, 2, 100, 300, 256, None, 0.0, 0, False),
-        ("mma d256 softcap50 g2 contiguous", bf, 1, 8, 4, 256, 256, 256, None, 50.0, 0, True),
+        # the wgmma route at D 256 (gemma2-2b's head dim): soft cap 50, window
+        # 64 with ragged S, G 1 / 2 / 8, window with q_offset, rows that see no
+        # column, non-causal, contiguous tensors, a batch of one whose dout has
+        # a batch stride of 1 element (as autograd hands it over)
+        ("wgmma d256 window64 ragged s200 g2", bf, 1, 8, 4, 200, 200, 256, 64, 0.0, 0, True),
+        ("wgmma d256 softcap50 g1", bf, 2, 4, 4, 192, 192, 256, None, 50.0, 0, True),
+        ("wgmma d256 window64 softcap50 g8", bf, 1, 16, 2, 256, 256, 256, 64, 50.0, 0, True),
+        ("wgmma d256 window70 q_offset100 g2", bf, 2, 4, 2, 90, 190, 256, 70, 0.0, 100, True),
+        ("wgmma d256 blind rows g2", bf, 2, 4, 2, 64, 200, 256, 32, 0.0, 220, True),
+        ("wgmma d256 non-causal sq100 s300 g2", bf, 1, 4, 2, 100, 300, 256, None, 0.0, 0, False),
+        ("wgmma d256 softcap50 g2 contiguous", bf, 1, 8, 4, 256, 256, 256, None, 50.0, 0, True),
+        ("wgmma d256 softcap50 g2 s333 odd dout stride", bf, 1, 8, 4, 333, 333, 256, None, 50.0,
+         0, True),
     ]
 
 
@@ -1179,13 +1301,16 @@ def check_flash_bwd(device, timer):
         kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
         ins, out = _bwd_inputs(gen, b, h, kv, sq, s, d, dt, device,
                                contiguous=name.endswith("contiguous"), **kw)
+        if name.endswith("odd dout stride"):     # a dim of size 1: its stride addresses nothing
+            dout = ins[3]
+            ins = ins[:3] + (dout.as_strided(dout.shape, (1,) + dout.stride()[1:]),) + ins[4:]
         rt = fab_k.route(dt, d)
         assert name.startswith("wgmma") <= (rt == "wgmma"), (name, rt)
-        assert name.startswith("mma ") <= (rt == "mma"), (name, rt)
-        before = fab_k.launches_by_route[rt]
+        before, copied = fab_k.launches_by_route[rt], fab_k.copied_bytes
         got = fab_k.flash_attention_bwd(*ins, **kw)
         torch.cuda.synchronize()
         assert fab_k.launches_by_route[rt] == before + 1, (name, rt)
+        assert fab_k.copied_bytes == copied, name       # every operand read in place
         want = fab_k.flash_attention_bwd_plain(*ins, **kw)
         errs = []
         for what, x, y, ref_in in zip(("dq", "dk", "dv"), got, want, ins[:3]):
@@ -2132,8 +2257,8 @@ def train_config(arch: str):
 
 
 def k5_route(cfg) -> str:
-    """The route every K5 launch of a bf16 run of ``cfg`` must take: ``mma``
-    at head dim 256 (gemma2-2b), ``wgmma`` at 64 and 128."""
+    """The route every K5 launch of a bf16 run of ``cfg`` must take:
+    ``wgmma`` at head dims 64, 128 and 256 (gemma2-2b)."""
     return K5_ROUTE_BY_HEAD_DIM[cfg.head_dim]
 
 
@@ -3129,8 +3254,11 @@ def dryrun_kernel_shapes(device, timer):
     time, against their plain versions (the serving tolerance) and timed
     beside them and SDPA, contiguous: K1 on the ``mma`` route at gemma2-2b's prefill
     (q (2, 8, 8192, 256), k/v (2, 4, 8192, 256) bf16, causal, soft cap 50;
-    SDPA has no soft cap and runs without it), K2 at qwen3-32b's decode
-    (q (8, 8, 8, 128), k/v (8, 32768, 8, 128) bf16, every slot valid)."""
+    SDPA has no soft cap and runs without it), K2 on its tensor-core
+    instance at qwen3-32b's decode (q (8, 8, 8, 128), k/v (8, 32768, 8, 128)
+    bf16, every slot valid; its splits, cluster and route printed, and the
+    other cluster size timed beside the rule's), and K5 at gemma2-2b's train
+    microbatch (:func:`_k5_d256_shape`)."""
     gen = torch.Generator(device=device).manual_seed(5)
     dt = torch.bfloat16
     rows = {}
@@ -3184,18 +3312,22 @@ def dryrun_kernel_shapes(device, timer):
         ke, ve = (t.repeat_interleave(g, dim=1) for t in (kl, vl))
         lib = lambda: F.scaled_dot_product_attention(ql, ke, ve)  # noqa: E731
     library_ms = timer(lib)
-    nbytes = 2 * b * s * kv * d * 2 + 2 * b * kv * g * d * 2 + b * s
-    flops = 4 * g * d * kv * b * s
-    t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    library_masked_ms = timer(_sdpa_decode(q, k, v, mask))
+    bound, by = _decode_bound(b, kv, g, d, b * s, s)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = dec_k.num_splits(b, kv, s, sms)
+    other = 8 if splits != 8 else 4          # the cluster the rule did not pick, for the record
+    ms_other = timer(lambda: dec_k.decode_attention(q, k, v, mask, splits=other))
+    print(f"  dryrun decode[g8 S 32768]: splits {splits}, cluster "
+          f"{dec_k.cluster_size(splits)}, route {dec_k.route(dt)}: {ms:.4f} ms; splits "
+          f"{other}: {ms_other:.4f} ms; SDPA with attn_mask {library_masked_ms:.4f} ms")
     rows["decode_attention"] = {
         "shape": f"q({b},{kv},{g},{d}) kv({b},{s},{kv},{d}) bf16, every slot valid "
                  f"(qwen3-32b decode)", "splits": splits,
-        "cluster": dec_k.cluster_size(splits),
+        "cluster": dec_k.cluster_size(splits), "route": dec_k.route(dt),
         "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
-        "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
+        "library_ms": library_ms, "library_masked_ms": library_masked_ms,
+        f"ms_splits_{other}": ms_other, "bound_ms": bound, "bound_by": by}
     del q, k, v, mask
     torch.cuda.empty_cache()
     rows["flash_attention_bwd"] = _k5_d256_shape(gen, device, timer)
@@ -3211,31 +3343,26 @@ def dryrun_kernel_shapes(device, timer):
 def _k5_d256_shape(gen, device, timer):
     """K5 at gemma2-2b's train microbatch (q/dout (1, 8, 4096, 256), k/v (1,
     4, 4096, 256) bf16, causal, soft cap 50, delta inside from ``out``) on
-    its ``mma`` route against its plain version, timed in the same call
-    beside the bf16 D 256 ``fma`` instance this head dim ran on before (the
-    wrapper's private launch helper, the route named), the plain version and
-    the SDPA backward alone (``torch.autograd.grad`` after one forward),
-    which has no soft cap and runs without it; where PyTorch refuses D 256
-    there, the row says so."""
+    its ``wgmma`` route against its plain version, timed beside the plain
+    version and the SDPA backward alone (``torch.autograd.grad`` after one
+    forward), which has no soft cap and runs without it; where PyTorch
+    refuses D 256 there, the row says so. (The parent commit's ``mma`` route
+    on the same inputs is timed by ``tools/time_k2_k5.py``.)"""
     dt = torch.bfloat16
     b, h, kv, s, d, cap = 1, 8, 4, 4096, 256, 50.0
     (q, k, v, dout, lse, delta), out = _bwd_inputs(gen, b, h, kv, s, s, d, dt, device,
                                                    softcap=cap)
-    assert fab_k.route(dt, d) == "mma"
+    assert fab_k.route(dt, d) == "wgmma"
     fn = lambda: fab_k.flash_attention_bwd(q, k, v, dout, lse, out=out, softcap=cap)  # noqa: E731
-    fma = lambda: fab_k._launch(q, k, v, dout, lse, None, out, "fma", softcap=cap)  # noqa: E731
     want = fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta, softcap=cap)
     before = dict(fab_k.launches_by_route)
     err = max(_check(f"dryrun flash_bwd[d256] {w}", x, y, BWD_TOL[dt])
               for w, x, y in zip(("dq", "dk", "dv"), fn(), want))
-    fma_err = max(_check(f"dryrun flash_bwd[d256, fma] {w}", x, y, BWD_TOL[dt])
-                  for w, x, y in zip(("dq", "dk", "dv"), fma(), want))
     assert {r: fab_k.launches_by_route[r] - before[r] for r in before} == {
-        "fma": 1, "mma": 1, "wgmma": 0}
+        "fma": 0, "mma": 0, "wgmma": 1}
     del want
-    ms, fma_ms = timer(fn, iters=7), timer(fma, iters=7)
-    ms2 = timer(fn, iters=7)
-    dev_ms, _ = device_ms(fn, iters=7)
+    ms = timer(fn, iters=7)
+    dev_ms, _ = device_ms(fn, iters=7, label="K5 d256")
     plain_ms = timer(lambda: fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
                                                              softcap=cap), warmup=1, iters=3)
     note = "SDPA backward alone, without the soft cap"
@@ -3256,14 +3383,11 @@ def _k5_d256_shape(gen, device, timer):
     pair_flops = 2 * d * b * h * _visible_pairs(s, s, True, None, 0)
     nbytes = (3 * b * h * s * d + 4 * b * kv * s * d) * 2 + 2 * 4 * b * h * s
     t_b, t_f = nbytes / HBM_BW * 1e3, 5 * pair_flops / PEAK_FLOPS[dt] * 1e3
-    print(f"  dryrun flash_bwd[d256]: route mma {ms:.4f} / {ms2:.4f} ms (timed before and "
-          f"after the parent), the parent fma instance {fma_ms:.4f} ms (max abs err "
-          f"{fma_err:.3e}), in the same call; the design's 9 products at 989 TFLOP/s "
-          f"{9 * pair_flops / PEAK_FLOPS[dt] * 1e3:.4f} ms")
+    print(f"  dryrun flash_bwd[d256]: route wgmma {ms:.4f} ms; the design's 7 products at "
+          f"989 TFLOP/s {7 * pair_flops / PEAK_FLOPS[dt] * 1e3:.4f} ms")
     return {"shape": f"q/dout({b},{h},{s},{d}) kv({b},{kv},{s},{d}) bf16 causal softcap 50, "
-                     f"route mma (gemma2-2b train microbatch)",
-            "max_abs_err": err, "ms": ms, "ms_after_parent": ms2, "device_ms": dev_ms,
-            "parent_fma_ms": fma_ms, "parent_fma_max_abs_err": fma_err, "plain_ms": plain_ms,
+                     f"route wgmma (gemma2-2b train microbatch)",
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_note": note,
             "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
 
@@ -3360,7 +3484,7 @@ def main(argv=None):
         for line in sorted(set(re.findall(r"^.*(?:wgmma|setmaxnreg).*$", log, re.M))):
             print(f"  ptxas {src}: {line.strip()[:200]}")
         for fn, frame, st, ld, nreg in re.findall(
-                r"Function properties for (\S*mma_kernel\S*)\n\s*(\d+) bytes stack frame, "
+                r"Function properties for (\S*(?:mma|sm90)_kernel\S*)\n\s*(\d+) bytes stack frame, "
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
                 log):
             print(f"  ptxas {src}: {fn}: {nreg} registers, {frame} bytes stack frame, "
@@ -3380,12 +3504,12 @@ def main(argv=None):
             if "device_ms" in kd:
                 lcall, ldev = kd.get("library_call_ms"), kd.get("library_device_ms")
                 print(f"    {kd['name']}: call {kd['call_ms']:.4f} ms, device "
-                      f"{kd['device_ms']:.4f} ms ({kd['device_kernels_per_call']:g} "
-                      f"kernels a call)"
+                      f"{kd['device_ms']:.4f} ms ({_per_call(kd['device_kernels_per_call'])})"
                       + ("; library: " if ldev is not None else "")
                       + (f"call {lcall:.4f} ms, " if lcall is not None else "")
-                      + (f"device {ldev:.4f} ms ({kd['library_kernels_per_call']:g} "
-                         f"kernels a call)" if ldev is not None else ""))
+                      + (f"device {ldev:.4f} ms "
+                         f"({_per_call(kd['library_kernels_per_call'])})"
+                         if ldev is not None else ""))
             if kd["name"] == "flash_attention_bwd":
                 print(f"    flash_attention_bwd: delta inside; with delta given "
                       f"{kd['given_delta_ms']:.4f} ms; the separate delta pass it replaces "

@@ -22,55 +22,23 @@
 //
 // Three routes, chosen by the wrapper from the dtype and the head dim alone
 // (kernels/flash_attention_bwd.py::route), share the design:
-//   * `wgmma`: bf16 at D = 64 and 128 (the training shapes), the Hopper kernels
-//     of flash_attention_bwd_sm90.cu (TMA rings, producer and consumer
-//     warpgroups, every product on `wgmma`; its design note says what bounds
-//     the backward at the training shape);
-//   * `mma`: bf16 at D = 16 (the smoke configs) and D = 256 (gemma2), every
-//     product on the tensor cores (`mma.sync` m16n8k16, fp32 accumulators),
-//     warps of 16 rows, tiles in shared memory with a 16-byte row pad for
-//     `ldmatrix`, the next tile's copies (`cp.async`, double-buffered) in
-//     flight during the current tile's products. P and dS never leave
-//     registers: their accumulator layout is the A-operand layout of the next
-//     product, so they are only rounded to bf16 in place (as the forward K1
-//     does with P);
+//   * `wgmma`: bf16 at D = 64, 128 and 256 (the training shapes, gemma2's
+//     256 among them), the Hopper kernels of flash_attention_bwd_sm90.cu (TMA
+//     rings, producer and consumer warpgroups, every product on `wgmma`; its
+//     design note says what bounds the backward at the training shapes);
+//   * `mma`: bf16 at D = 16 (the smoke configs), every product on the tensor
+//     cores (`mma.sync` m16n8k16, fp32 accumulators), warps of 16 rows, tiles
+//     in shared memory with a 16-byte row pad for `ldmatrix`, the next tile's
+//     copies (`cp.async`, double-buffered) in flight during the current
+//     tile's products. P and dS never leave registers: their accumulator
+//     layout is the A-operand layout of the next product, so they are only
+//     rounded to bf16 in place (as the forward K1 does with P);
 //   * `fma`: fp32 inputs: fp32 FMAs on the CUDA cores, 256 threads a block,
-//     tiles widened to fp32 in shared memory with an odd row stride. Its bf16
-//     D = 256 instance, the route gemma2's head dim took before the `mma`
-//     route took it, is kept only as the yardstick the `mma` route is timed
-//     against (the wrapper's private launch helper reaches it when asked by
-//     name; `route` never picks it).
+//     tiles widened to fp32 in shared memory with an odd row stride.
 // The two-kernel form recomputes the scores and dout.v in both kernels (7
 // products where the function needs 5), the price of having no atomics.
 // A masked pair has p = 0 exactly, rows past Sq and columns past S are masked,
 // and a tile that causality or the window hides entirely is never visited.
-//
-// The `mma` route at D = 256. The trap is the register file: a warp's 16 x 256
-// fp32 accumulator is 128 registers a thread. The dq kernel holds one (dq, as
-// K1's `mma` kernel holds O at D 256) with 32-column K/V tiles, so it is the
-// D 16 kernel instantiated at D 256. A dk/dv warp that held both dk and dv for
-// its 16 kv rows would need 256, over the 255 limit, which is why this case
-// first went to `fma`. Layout (a) of the two considered: two warps share each
-// 16 kv rows (8 warps, 64 kv rows a block), each owning half of D of dk and
-// dv (128 registers), and each computes the 16 x 32 tiles of the scores and
-// dout.v over the full D from shared memory. So the scores and dout.v of the
-// dk/dv kernel are computed twice: 9 products a visible pair where the
-// function needs 5 (layout (b), separate dk and dv kernels, would do 8 but
-// read q and dout once more). Shared memory, 264-element rows (528 bytes,
-// 16 of them padding): dq 64-row Q and dout tiles plus double-buffered 32-row
-// K and V, 132 KB; dk/dv resident 64-row K and V plus double-buffered 32-row
-// Q and dout, 132.5 KB; one block an SM. What bounds it: the 9 products at
-// the `mma.sync` rate, which on Hopper is below the 989 TFLOP/s that only
-// `wgmma` reaches, against a bound of the 5 products at 989 TFLOP/s; and
-// `ldmatrix` traffic, since every warp reloads its A fragments from shared
-// memory each product. On an H100 80GB HBM3 at 700 W (ptxas: 241 registers
-// for dq, 236 for dk/dv, no spills) it takes 3.47 ms at gemma2-2b's train
-// microbatch, q/dout (1, 8, 4096, 256) with soft cap 50: 89 TFLOP/s on the 9
-// products, 20x the 0.174 ms bound. What this first design leaves for later
-// (Queue P):
-// `wgmma` at D 256 (64-row warpgroup tiles with the accumulators split across
-// the warpgroup's registers), and a producer warp feeding TMA rings as the
-// D 64/128 kernels do.
 #include <cstdint>
 
 #include "flash_attention_bwd.cuh"
@@ -92,7 +60,7 @@ __device__ __forceinline__ void p_ds(float qk, float dp, float lse, float delta,
 }
 
 // ---------------------------------------------------------------------------
-// FMA path (fp32 inputs; the bf16 D = 256 yardstick)
+// FMA path (fp32 inputs)
 constexpr int kThreads = 256;   // 16 x 16: thread (ty, tx)
 
 // Copies `rows` rows of D elements (row r at src + r * stride) into an fp32
@@ -352,7 +320,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path (D = 16 and 256)
+// bf16 tensor-core path (D = 16)
 constexpr int kMmaThreads = 128;   // 4 warps x 16 rows
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -547,16 +515,13 @@ __global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma_kernel(BwdArgs a) {
   }
 }
 
-// dk/dv: the 64 kv rows of a tile are 4 row groups of 16, each shared by
-// SPLIT warps: warp w owns kv rows 16 (w % 4)..+15 and columns (w / 4) D /
-// SPLIT..+D / SPLIT - 1 of dk and dv, and computes its rows' scores and dout.v
-// over the full D (SPLIT = 2 at D 256: see the design note). The kv head's G
-// query heads x q tiles stream through double-buffered Q / dout tiles.
-template <int D, int BQ, int SPLIT>
-__global__ void __launch_bounds__(kMmaThreads * SPLIT) bwd_dkv_mma_kernel(BwdArgs a) {
+// dk/dv: warp w owns kv rows 16 w..16 w + 15 of a 64-row tile. The kv head's
+// G query heads x q tiles stream through double-buffered Q / dout tiles.
+template <int D, int BQ>
+__global__ void __launch_bounds__(kMmaThreads) bwd_dkv_mma_kernel(BwdArgs a) {
   typedef __nv_bfloat16 T;
-  constexpr int BK = 64, LD = D + 8, NT_Q = BQ / 8, DW = D / SPLIT, NT_O = DW / 8;
-  constexpr int THREADS = kMmaThreads * SPLIT;
+  constexpr int BK = 64, LD = D + 8, NT_Q = BQ / 8, NT_O = D / 8;
+  constexpr int THREADS = kMmaThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
   T* sV = sK + BK * LD;
@@ -566,7 +531,7 @@ __global__ void __launch_bounds__(kMmaThreads * SPLIT) bwd_dkv_mma_kernel(BwdArg
   const int hk = blockIdx.y, b = blockIdx.z, G = a.H / a.KV;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int rg = warp & 3, col0 = (warp >> 2) * DW;   // row group, first column owned
+  const int rg = warp;                          // row group
   const int c0 = blockIdx.x * BK, krows = min(BK, a.S - c0);
 
   stage_async<D, LD, THREADS>(
@@ -647,8 +612,8 @@ __global__ void __launch_bounds__(kMmaThreads * SPLIT) bwd_dkv_mma_kernel(BwdArg
       uint32_t ap[4], as[4];
       acc_to_a<NT_Q>(ap, st, kk);
       acc_to_a<NT_Q>(as, dpt, kk);
-      mma_nn<NT_O>(dv, ap, sO + col0, LD, kk * 16, lane);
-      mma_nn<NT_O>(dk, as, sQ + col0, LD, kk * 16, lane);
+      mma_nn<NT_O>(dv, ap, sO, LD, kk * 16, lane);
+      mma_nn<NT_O>(dk, as, sQ, LD, kk * 16, lane);
     }
     __syncthreads();                 // every warp is done with this buffer
   }
@@ -662,9 +627,9 @@ __global__ void __launch_bounds__(kMmaThreads * SPLIT) bwd_dkv_mma_kernel(BwdArg
     if (row < a.S) {
 #pragma unroll
       for (int j = 0; j < NT_O; ++j) {
-        *reinterpret_cast<uint32_t*>(dkp + (i64)row * a.dk_ss + col0 + j * 8 + 2 * t) =
+        *reinterpret_cast<uint32_t*>(dkp + (i64)row * a.dk_ss + j * 8 + 2 * t) =
             pack_bf16(dk[j][2 * r], dk[j][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dvp + (i64)row * a.dv_ss + col0 + j * 8 + 2 * t) =
+        *reinterpret_cast<uint32_t*>(dvp + (i64)row * a.dv_ss + j * 8 + 2 * t) =
             pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
       }
     }
@@ -707,25 +672,16 @@ int launch_fma_d(const BwdArgs& a, cudaStream_t st) {
   }
 }
 
-// BN: the dq kernel's K/V tile; BQ: the dk/dv kernel's q tile; SPLIT: warps
-// sharing each 16 kv rows of the dk/dv kernel.
-template <int D, int BN, int BQ, int SPLIT>
+// BN: the dq kernel's K/V tile; BQ: the dk/dv kernel's q tile.
+template <int D, int BN, int BQ>
 int launch_mma(const BwdArgs& a, cudaStream_t st) {
   constexpr int BM = 64, BK = 64, LD = D + 8;
   const size_t smem_dq = (size_t)(2 * BM + 4 * BN) * LD * sizeof(__nv_bfloat16);
   int e = launch_k(bwd_dq_mma_kernel<D, BN>, dim3(cdiv(a.Sq, BM), a.H, a.B), kMmaThreads, smem_dq, a, st);
   if (e != 0) return e;
   const size_t smem_kv = (size_t)(2 * BK + 4 * BQ) * LD * sizeof(__nv_bfloat16) + 4 * BQ * sizeof(float);
-  return launch_k(bwd_dkv_mma_kernel<D, BQ, SPLIT>, dim3(cdiv(a.S, BK), a.KV, a.B),
-                  kMmaThreads * SPLIT, smem_kv, a, st);
-}
-
-int launch_mma_d(const BwdArgs& a, cudaStream_t st) {
-  switch (a.D) {
-    case 16: return launch_mma<16, 64, 64, 1>(a, st);
-    case 256: return launch_mma<256, 32, 32, 2>(a, st);
-    default: return -4;
-  }
+  return launch_k(bwd_dkv_mma_kernel<D, BQ>, dim3(cdiv(a.S, BK), a.KV, a.B), kMmaThreads,
+                  smem_kv, a, st);
 }
 
 }  // namespace
@@ -733,11 +689,9 @@ int launch_mma_d(const BwdArgs& a, cudaStream_t st) {
 // Returns 0, a cudaError_t of a launch, 1000 + a CUresult (tensor map), -1
 // (head dim) or -4 (the route does not take this dtype, head dim or
 // delta_from_out). dtype: 0 = float32, 1 = bfloat16. route: 0 = fp32 FMAs
-// (float32 at any head dim; bfloat16 at D = 256, the yardstick the wrapper's
-// private launch helper reaches by name), 1 = `mma.sync` (bfloat16, D = 16 or
-// 256), 2 = `wgmma` + TMA (bfloat16, D = 64 or 128,
-// flash_attention_bwd_sm90.cu); the wrapper's `route` picks it from the dtype
-// and the head dim alone. Strides are in elements; the last dim of every tensor is
+// (float32 at any head dim), 1 = `mma.sync` (bfloat16, D = 16), 2 = `wgmma` +
+// TMA (bfloat16, D = 64, 128 or 256, flash_attention_bwd_sm90.cu); the
+// wrapper's `route` picks it from the dtype and the head dim alone. Strides are in elements; the last dim of every tensor is
 // contiguous and every row start is 16-byte aligned; lse and delta are
 // contiguous (B, H, Sq) fp32. delta_from_out (the `wgmma` route only): delta
 // is written, as rowsum(dout * out), by the dq kernel before it is used.
@@ -759,11 +713,10 @@ extern "C" int flash_attention_bwd(
   cudaStream_t st = (cudaStream_t)stream;
   if (delta_from_out && route != 2) return -4;
   switch (route) {
-    case 0:
-      if (dtype == 0) return launch_fma_d<float>(a, st);
-      return D == 256 ? launch_fma<__nv_bfloat16, 256, 32, 32, 32>(a, st) : -4;
-    case 1: return dtype == 1 && (D == 16 || D == 256) ? launch_mma_d(a, st) : -4;
-    case 2: return dtype == 1 && (D == 64 || D == 128) ? flash_attention_bwd_sm90(a, st) : -4;
+    case 0: return dtype == 0 ? launch_fma_d<float>(a, st) : -4;
+    case 1: return dtype == 1 && D == 16 ? launch_mma<16, 64, 64>(a, st) : -4;
+    case 2: return dtype == 1 && (D == 64 || D == 128 || D == 256) ? flash_attention_bwd_sm90(a, st)
+                                                                    : -4;
     default: return -4;
   }
 }

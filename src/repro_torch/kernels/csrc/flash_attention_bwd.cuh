@@ -48,6 +48,6 @@ __device__ __forceinline__ void q_range(const BwdArgs& a, int c0, int cols, int 
   nqt = (cols > 0 && hi >= lo) ? hi / BQ - qt0 + 1 : 0;
 }
 
-// The wgmma + TMA kernels (bf16, D = 64 or 128). Returns 0, a cudaError_t of
+// The wgmma + TMA kernels (bf16, D = 64, 128 or 256). Returns 0, a cudaError_t of
 // a launch, or 1000 + a CUresult of a tensor-map encoding.
 int flash_attention_bwd_sm90(const BwdArgs& a, cudaStream_t stream);

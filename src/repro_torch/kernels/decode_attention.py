@@ -5,7 +5,9 @@ plain PyTorch version.
 Replaces the TPU kernel ``repro/kernels/decode_attention.py::decode_attention``.
 One launch a call: the blocks of a (batch, kv head) form a thread-block
 cluster, each takes a share of the row's valid slots and they merge through
-distributed shared memory. The kernel's design notes (memory-bound; what the
+distributed shared memory. Two instances, by dtype (:func:`route`): bf16 runs
+q.k and P V as ``mma.sync`` tensor-core products (``mma``), fp32 as FMAs on
+the CUDA cores (``fma``). The kernel's design notes (what bounds it; what the
 design does about it) are at the top of the ``.cu`` source.
 
 Device rule: a CUDA tensor launches the kernel or raises; the plain version
@@ -26,8 +28,8 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, NEG_INF,
 
 MAX_GROUP = 8
 MAX_CLUSTER = 8       # the portable thread-block cluster size
-MIN_ROWS_PER_SPLIT = 64
-BLOCKS_PER_SM = 2     # how many blocks per SM the split aims for
+MIN_ROWS_PER_SPLIT = 512
+BLOCKS_PER_SM = 1     # how many blocks per SM the split aims for
 
 launches = 0          # kernel launches made by :func:`decode_attention`
 
@@ -45,6 +47,12 @@ def _kernel_fn():
         fn.restype = _INT
         _fn = fn
     return _fn
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel instance a dtype runs on: ``mma`` (tensor cores) for
+    bf16, ``fma`` (CUDA cores) for fp32."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,7 +80,13 @@ def num_splits(batch: int, kv_heads: int, s: int, sm_count: int) -> int:
     ``BLOCKS_PER_SM`` blocks for every SM, at most one cluster
     (``MAX_CLUSTER``), no share that could only hold fewer than
     ``MIN_ROWS_PER_SPLIT`` of the S slots, and a power of two, so that no
-    block of the cluster is idle."""
+    block of the cluster is idle. One block an SM, each streaming its share
+    by TMA, reads faster than two (on an H100, qwen3-32b's decode over 32768
+    slots: 0.392 ms at 2 splits, 128 blocks, against 0.512 at 4; PERF.md),
+    and a share of a few hundred rows does not pay for its block's fixed
+    costs (the mask count, the pipeline's first stage, the cluster merge:
+    gemma2-2b's decode over 1024 slots, 520 valid, 0.0223 ms at 2 splits
+    against 0.0293 at 4)."""
     want = math.ceil(BLOCKS_PER_SM * sm_count / (batch * kv_heads))
     n = max(1, min(want, MAX_CLUSTER, math.ceil(s / MIN_ROWS_PER_SPLIT)))
     return 1 << (n.bit_length() - 1)

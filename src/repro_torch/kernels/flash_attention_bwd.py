@@ -12,16 +12,12 @@ Replaces the TPU kernels ``repro/kernels/flash_attention_bwd.py::
 flash_attention_bwd`` (``_dq_kernel``, ``_dkv_kernel``). Three routes, chosen
 by :func:`route` from the dtype and the head dim alone:
 
-* ``wgmma``: bf16 at D = 64 and 128 (the training shapes),
+* ``wgmma``: bf16 at D = 64, 128 and 256 (the training shapes),
   ``csrc/flash_attention_bwd_sm90.cu``: TMA rings, producer and consumer
   warpgroups, every product on ``wgmma``;
-* ``mma``: bf16 at D = 16 and 256, ``csrc/flash_attention_bwd.cu``,
-  ``mma.sync`` with ``cp.async`` copies (at D 256 two warps share each 16
-  kv rows of the dk/dv kernel, each holding half of D of dk and dv);
+* ``mma``: bf16 at D = 16 (the smoke configs), ``csrc/flash_attention_bwd.cu``,
+  ``mma.sync`` with ``cp.async`` copies;
 * ``fma``: fp32, ``csrc/flash_attention_bwd.cu``, FMAs on the CUDA cores.
-  Its bf16 D = 256 instance, the route that head dim took before the
-  ``mma`` route took it, is reached only through :func:`_launch` with the
-  route named, as a yardstick to time the ``mma`` route against.
 
 The kernels' design notes are at the top of the ``.cu`` sources.
 
@@ -64,9 +60,9 @@ def _kernel_fn():
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernels a (dtype, head dim) runs on. Nothing else decides it: a
     build or launch error raises, it never moves a call to another route."""
-    if dtype == torch.bfloat16 and d in (64, 128):
+    if dtype == torch.bfloat16 and d in (64, 128, 256):
         return "wgmma"
-    if dtype == torch.bfloat16 and d in (16, 256):
+    if dtype == torch.bfloat16 and d == 16:
         return "mma"
     return "fma"
 
@@ -169,18 +165,15 @@ def flash_attention_bwd(q, k, v, dout, lse, delta=None, *, out=None,
         return flash_attention_bwd_plain(q, k, v, dout, lse, delta, out=out, causal=causal,
                                          window=window, softcap=softcap,
                                          scale=scale, q_offset=q_offset)
-    return _launch(q, k, v, dout, lse, delta, out, route(q.dtype, q.shape[-1]),
-                   causal=causal, window=window, softcap=softcap, scale=scale,
-                   q_offset=q_offset)
+    return _launch(q, k, v, dout, lse, delta, out, causal=causal, window=window,
+                   softcap=softcap, scale=scale, q_offset=q_offset)
 
 
-def _launch(q, k, v, dout, lse, delta, out, rt: str, *, causal: bool = True,
-            window: Optional[int] = None, softcap: float = 0.0,
-            scale: Optional[float] = None, q_offset: int = 0):
-    """:func:`flash_attention_bwd` on CUDA tensors, on the route ``rt``.
-    Only that function and one timing of the bf16 D = 256 ``fma`` instance
-    beside the ``mma`` route call it; the C entry point refuses (-4) a route
-    that does not take the dtype or head dim."""
+def _launch(q, k, v, dout, lse, delta, out, *, causal: bool, window: Optional[int],
+            softcap: float, scale: Optional[float], q_offset: int):
+    """:func:`flash_attention_bwd` on CUDA tensors, on :func:`route`'s route;
+    the C entry point refuses (-4) a route that does not take the dtype or
+    head dim."""
     global launches
     b, h, sq, d = q.shape
     kv, s = k.shape[1], k.shape[2]
@@ -194,6 +187,7 @@ def _launch(q, k, v, dout, lse, delta, out, rt: str, *, causal: bool = True,
             or dout.shape != q.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} dout{tuple(dout.shape)}")
+    rt = route(q.dtype, d)
     from_out = delta is None and rt == "wgmma"
     if delta is None and not from_out:
         delta = delta_of(dout, out)

@@ -131,16 +131,33 @@ def test_flash_cpu_path_counts_no_launch():
 
 
 @pytest.mark.parametrize("batch,kv,s,sms,want", [
-    (8, 8, 1024, 132, 4),        # phi4 serving: 5 wanted, rounded down to a power of two
+    (8, 8, 1024, 132, 2),        # phi4 serving: 3 wanted (one block an SM), rounded down
     (8, 8, 32, 132, 1),          # a short cache: one share
     (1, 1, 32, 132, 1),
     (64, 8, 4096, 132, 1),
     (1, 8, 4096, 132, 8),        # one cluster at most
-    (8, 1, 200, 132, 4),         # capped by S / 64 rows
-    (4, 8, 1024, 132, 8),
+    (8, 1, 200, 132, 1),         # capped by S / 512 rows
+    (4, 8, 1024, 132, 2),        # 5 wanted, capped by S / 512 rows
 ])
 def test_decode_num_splits(batch, kv, s, sms, want):
     assert dec_k.num_splits(batch, kv, s, sms) == want
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma"), (torch.float32, "fma")])
+def test_decode_route_by_dtype(dtype, want):
+    """bf16 runs the tensor-core instance, fp32 the CUDA-core one; the C
+    entry point picks them by the same dtype code the wrapper hands it, and
+    builds the tensor-core instance at every head dim the wrapper takes."""
+    import re
+    from repro_torch.kernels import _build
+    assert dec_k.route(dtype) == want
+    src = (_build.CSRC / "decode_attention.cu").read_text()
+    assert "return launch_d(a, dtype == 1);" in src
+    switch = src[src.index("int launch_d("):src.index("}  // namespace")]
+    built = re.findall(r"case (\d+): return bf16 \? launch_mma<(\d+)>\(a\) : launch_fma_g<(\d+)>",
+                       switch)
+    assert [int(d) for d, _, _ in built] == sorted(dec_k.HEAD_DIMS)
+    assert all(a == b == c for a, b, c in built)
 
 
 @pytest.mark.parametrize("nsplit,want", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8),
@@ -219,7 +236,7 @@ def test_flash_bwd_row_that_sees_no_column_matches_pallas(bf16):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 256, "mma"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 256, "wgmma"),
     (torch.float32, 16, "fma"), (torch.float32, 64, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
 ])
@@ -232,28 +249,27 @@ def test_flash_bwd_route_by_dtype_and_head_dim(dtype, d, want):
 def test_flash_bwd_routes_are_the_c_entry_points_codes():
     """The wrapper hands the C entry point ``ROUTES.index(route)``; the entry
     point's switch reads 0 = fma, 1 = mma, 2 = wgmma and refuses a route off
-    its dtype or head dim; the mma kernels are built for D 16 and 256 (at D
-    256 two warps share each 16 kv rows of the dk/dv kernel), and the bf16
-    D 256 fma instance stays for the private launch helper alone."""
+    its dtype or head dim: fma takes fp32 only (no bf16 instance is left),
+    the mma kernels are built for D 16 alone, and the wgmma kernels for D 64,
+    128 and 256."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention_bwd as fab_k
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     entry = src[src.index('extern "C" int flash_attention_bwd('):]
-    assert "if (dtype == 0) return launch_fma_d<float>(a, st);" in entry
-    assert "return D == 256 ? launch_fma<__nv_bfloat16, 256" in entry
-    assert ("case 1: return dtype == 1 && (D == 16 || D == 256) ? launch_mma_d(a, st) : -4;"
-            in entry)
-    assert ("case 2: return dtype == 1 && (D == 64 || D == 128) ? "
-            "flash_attention_bwd_sm90(a, st) : -4;") in entry
+    assert "case 0: return dtype == 0 ? launch_fma_d<float>(a, st) : -4;" in entry
+    assert "__nv_bfloat16" not in entry
+    assert "case 1: return dtype == 1 && D == 16 ? launch_mma<16, 64, 64>(a, st) : -4;" in entry
+    assert re.search(r"case 2: return dtype == 1 && \(D == 64 \|\| D == 128 \|\| D == 256\) "
+                     r"\? flash_attention_bwd_sm90\(a, st\)\s+: -4;", entry)
     assert "default: return -4;" in entry
     launch = src[src.index("int launch_mma("):src.index('extern "C"')]
     assert re.findall(r"mma_kernel<(\w+), ", launch) == ["D", "D"]
-    switch = launch[launch.index("int launch_mma_d("):]
-    assert re.findall(r"case (\d+): return launch_mma<(\d+), ", switch) == [
-        ("16", "16"), ("256", "256")]
-    assert "launch_mma<256, 32, 32, 2>" in switch and "launch_mma<16, 64, 64, 1>" in switch
-    assert "default: return -4;" in switch
+    assert "SPLIT" not in src and "launch_mma_d" not in src
+    sm90 = (_build.CSRC / "flash_attention_bwd_sm90.cu").read_text()
+    switch = sm90[sm90.index("int flash_attention_bwd_sm90("):]
+    assert re.findall(r"case (\d+): return launch<(\d+)>", switch) == [
+        ("64", "64"), ("128", "128"), ("256", "256")]
     assert fab_k.ROUTES == ("fma", "mma", "wgmma")
 
 

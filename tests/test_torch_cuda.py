@@ -122,6 +122,40 @@ def test_decode_edge_rows_one_launch(device, dtype, g, lengths, splits):
     torch.testing.assert_close(out[empty].float(), mean_v, atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("masks", ["prefix", "scattered"])
+def test_decode_tensor_core_instance_vs_plain(device, g, d, masks):
+    """The bf16 instance (q.k and P V on ``mma.sync``) at G 1-8 and D 64,
+    128 and 256, over 777 slots (not a multiple of its 64-row stage), one
+    launch a call: prefix masks with an all-masked row, or scattered masks;
+    soft cap 50 on even G; the splits from 1 to 8 in turn."""
+    b, kv, s = 3, 2, 777
+    gen = torch.Generator(device=device).manual_seed(13)
+    bf = torch.bfloat16
+    q = torch.randn((b, kv, g, d), generator=gen, device=device).to(bf)
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=device).to(bf) for _ in range(2))
+    if masks == "prefix":
+        lengths = torch.tensor([0, 65 * g, s - g], device=device)
+        mask = torch.arange(s, device=device)[None, :] < lengths[:, None]
+    else:
+        mask = torch.rand((b, s), generator=gen, device=device) < 0.3
+    cap = 50.0 if g % 2 == 0 else 0.0
+    splits = 1 + (g + d // 64) % 8
+    assert dec_k.route(bf) == "mma"
+    before = dec_k.launches
+    out, m, l = dec_k.decode_attention(q, k, v, mask, softcap=cap, return_stats=True,
+                                       splits=splits)
+    assert dec_k.launches == before + 1
+    want = dec_k.decode_attention_plain(q, k, v, mask, softcap=cap, return_stats=True)
+    for got, ref_ in zip((out, m, l), want):
+        atol = TOL[bf] * min(1.0, ref_.float().abs().max().item())
+        torch.testing.assert_close(got.float(), ref_.float(), atol=atol, rtol=TOL[bf])
+    empty = ~mask.any(dim=1)
+    assert (m[empty] == dec_k.NEG_INF).all() and (l[empty] == s).all()
+    assert bool(empty.any()) == (masks == "prefix")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,kv,g,s,d", [(8, 8, 3, 1024, 128), (2, 2, 8, 192, 64),
                                         (2, 2, 1, 32, 16), (1, 4, 5, 130, 256)])
@@ -430,13 +464,15 @@ def test_flash_bwd_wgmma_route_vs_plain(device, contiguous, b, h, kv, sq, s, d, 
     (1, 16, 2, 256, 256, 64, 50.0, 0, True),       # G 8, window with soft cap
     (2, 4, 2, 90, 190, 70, 0.0, 100, True),        # window with q_offset
     (1, 4, 2, 100, 300, None, 0.0, 0, False),      # non-causal
-    (2, 4, 2, 64, 200, 32, 0.0, 220, True)])       # rows that see no column
-def test_flash_bwd_mma_route_at_d256_vs_plain(device, contiguous, b, h, kv, sq, s, window,
-                                              softcap, q_offset, causal):
-    """bf16 at D 256 (gemma2-2b's head dim) runs on the ``mma.sync`` kernels,
-    on the model's strided views and on contiguous tensors, with delta given
-    and with delta computed from the forward's output; a row that sees no
-    column gives dq = 0."""
+    (2, 4, 2, 64, 200, 32, 0.0, 220, True),        # rows that see no column
+    (1, 8, 4, 333, 333, None, 50.0, 0, True)])     # a batch of one, ragged: odd dout stride
+def test_flash_bwd_wgmma_route_at_d256_vs_plain(device, contiguous, b, h, kv, sq, s, window,
+                                                softcap, q_offset, causal):
+    """bf16 at D 256 (gemma2-2b's head dim) runs on the ``wgmma`` + TMA
+    kernels, on the model's strided views and on contiguous tensors, with
+    delta given and with delta computed from the forward's output; a row
+    that sees no column gives dq = 0. At a batch of one, dout's batch stride
+    is set to 1 element (as autograd hands it over) and read in place."""
     from repro_torch.kernels import flash_attention_bwd as fab_k
     gen = torch.Generator(device=device).manual_seed(11)
     bf, d = torch.bfloat16, 256
@@ -453,11 +489,14 @@ def test_flash_bwd_mma_route_at_d256_vs_plain(device, contiguous, b, h, kv, sq, 
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
     out, lse = fa_k.flash_attention_plain(q, k, v, return_lse=True, **kw)
     delta = fab_k.delta_of(dout, out)
-    assert fab_k.route(bf, d) == "mma"
-    before = dict(fab_k.launches_by_route)
+    if b == 1:
+        dout = dout.as_strided(dout.shape, (1,) + dout.stride()[1:])
+    assert fab_k.route(bf, d) == "wgmma"
+    before, copied = dict(fab_k.launches_by_route), fab_k.copied_bytes
     given = fab_k.flash_attention_bwd(q, k, v, dout, lse, delta, **kw)
     inside = fab_k.flash_attention_bwd(q, k, v, dout, lse, out=out, **kw)
-    assert fab_k.launches_by_route["mma"] == before["mma"] + 2
+    assert fab_k.copied_bytes == copied
+    assert fab_k.launches_by_route["wgmma"] == before["wgmma"] + 2
     assert sum(fab_k.launches_by_route.values()) == sum(before.values()) + 2
     want = fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, delta, **kw)
     tol = BWD_TOL[bf]
@@ -471,33 +510,12 @@ def test_flash_bwd_mma_route_at_d256_vs_plain(device, contiguous, b, h, kv, sq, 
     assert (given[0][:, :, blind] == 0).all()
 
 
-def test_flash_bwd_fma_instance_at_d256_through_the_private_helper(device):
-    """The bf16 D 256 ``fma`` instance, which ``route`` no longer picks, is
-    reached only through ``_launch`` with the route named (as ``chip_smoke.py``
-    times it beside the ``mma`` route), and gives the plain version's
-    gradients."""
-    from repro_torch.kernels import flash_attention_bwd as fab_k
-    gen = torch.Generator(device=device).manual_seed(12)
-    bf = torch.bfloat16
-    q, dout = (torch.randn((1, 8, 128, 256), generator=gen, device=device).to(bf)
-               for _ in range(2))
-    k, v = (torch.randn((1, 4, 128, 256), generator=gen, device=device).to(bf)
-            for _ in range(2))
-    out, lse = fa_k.flash_attention_plain(q, k, v, return_lse=True, softcap=50.0)
-    before = dict(fab_k.launches_by_route)
-    got = fab_k._launch(q, k, v, dout, lse, None, out, "fma", softcap=50.0)
-    assert fab_k.launches_by_route["fma"] == before["fma"] + 1
-    want = fab_k.flash_attention_bwd_plain(q, k, v, dout, lse, out=out, softcap=50.0)
-    for g_, w_ in zip(got, want):
-        atol = BWD_TOL[bf] * min(1.0, w_.float().abs().max().item())
-        torch.testing.assert_close(g_.float(), w_.float(), atol=atol, rtol=BWD_TOL[bf])
-
-
 @pytest.mark.parametrize("dtype,d,rt,from_out", [
     (torch.bfloat16, 128, "fma", 0), (torch.bfloat16, 128, "mma", 0),
     (torch.bfloat16, 64, "mma", 0), (torch.float32, 128, "wgmma", 0),
     (torch.float32, 16, "mma", 0), (torch.bfloat16, 16, "wgmma", 0),
-    (torch.bfloat16, 256, "wgmma", 0), (torch.bfloat16, 64, "fma", 0),
+    (torch.bfloat16, 256, "mma", 0), (torch.bfloat16, 256, "fma", 0),
+    (torch.bfloat16, 64, "fma", 0),
     (torch.bfloat16, 16, "mma", 1), (torch.float32, 64, "fma", 1)])
 def test_flash_bwd_entry_point_refuses_a_route_off_its_dtype_or_head_dim(device, dtype, d,
                                                                          rt, from_out):

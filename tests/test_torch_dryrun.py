@@ -350,3 +350,16 @@ def test_replay_inputs_keep_the_recorded_layout():
     sig = cs["_signature"](view)
     got = cs["_laid_out"](sig, torch.ones(view.shape, dtype=torch.bfloat16))
     assert cs["_signature"](got) == sig and bool((got == 1).all())
+
+
+@pytest.mark.parametrize("counts,iters,whole", [
+    ((7, 14), 7, True),             # two kernels, one and two a call
+    ((), 7, False),                 # an empty profile
+    ((1,), 7, False),               # one kernel seen once in 7 calls
+    ((7, 6), 7, False),             # one record of the second kernel lost
+])
+def test_device_ms_takes_only_a_profile_that_holds_every_launch(counts, iters, whole):
+    """``device_ms`` keeps a profile only when each kernel was seen a whole
+    number of times a call; a profile that lost records reads far low."""
+    rows = [(100.0 * n, n, f"kernel{i}") for i, n in enumerate(counts)]
+    assert chip_smoke()["complete_capture"](rows, iters) is whole

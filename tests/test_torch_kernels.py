@@ -203,7 +203,7 @@ def test_decode_split_merge_rule():
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    assert dec_k.num_splits(8, 8, 1024, 132) == 4     # a cluster of 4 blocks
+    assert dec_k.num_splits(8, 8, 1024, 132) == 2     # a cluster of 2 blocks
     assert dec_k.num_splits(1, 1, 32, 132) == 1
     assert dec_k.num_splits(64, 8, 4096, 132) == 1
     x = torch.zeros(2, 8, 4, 16)

@@ -230,10 +230,10 @@ def test_reckon_train_of_the_runs(arch, low, high):
     assert low <= total <= high, total
 
 
-@pytest.mark.parametrize("d,want", [(64, "wgmma"), (128, "wgmma"), (256, "mma")])
+@pytest.mark.parametrize("d,want", [(64, "wgmma"), (128, "wgmma"), (256, "wgmma")])
 def test_k5_route_assertion_follows_the_head_dim(d, want, monkeypatch):
-    """``mma`` for gemma2-2b's D 256, ``wgmma`` for D 64 and 128; the
-    assertion fails when one launch took another route."""
+    """``wgmma`` for gemma2-2b's D 256 and for D 64 and 128; the assertion
+    fails when one launch took another route."""
     cs = chip_smoke()
     cfg = get_config("gemma2-2b" if d == 256 else "mixtral-8x7b")
     cfg = cfg if cfg.head_dim == d else cfg.scaled(head_dim=d)
@@ -393,11 +393,14 @@ def test_train_holds_on_the_cpu(arch, layers, seq):
 def test_flash_bwd_cases_cover_the_mma_route_at_d256():
     """The kernels phase's K5 cases at bf16 D 256: soft cap 50, window 64
     with ragged S, G 1 / 2 / 8, window with q_offset, rows that see no
-    column, non-causal, contiguous; each on ``mma``."""
+    column, non-causal, contiguous, a batch of one with an odd dout stride;
+    each on the route gemma2-2b's head dim now takes, ``wgmma`` (the name
+    is the one the D 256 ``mma`` route gave it)."""
     cs = chip_smoke()
     cases = [c for c in cs["flash_bwd_cases"]() if c[1] == torch.bfloat16 and c[7] == 256]
     fab_k = cs["fab_k"]
-    assert all(fab_k.route(c[1], c[7]) == "mma" for c in cases)
+    assert all(fab_k.route(c[1], c[7]) == "wgmma" for c in cases)
+    assert any(c[0].endswith("odd dout stride") and c[2] == 1 for c in cases)
     assert {c[3] // c[4] for c in cases} >= {1, 2, 8}
     assert any(c[8] is not None and c[10] > 0 for c in cases)            # window + q_offset
     assert any(c[9] == 50.0 for c in cases) and any(c[8] == 64 and c[5] == 200 for c in cases)
