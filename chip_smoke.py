@@ -67,7 +67,7 @@ Phases, each of which fails the run with a non-zero exit code:
    before the next, so each peak memory is its own;
 4. archs: the six archs that had run only as dry-run steps, at every
    published width, bf16, random weights, with the main phase's settings:
-   request traces through ``launch.serve`` of gemma2-2b (K1 on ``mma`` at D
+   request traces through ``launch.serve`` of gemma2-2b (K1 on ``wgmma`` at D
    256, soft caps 50 and 30, local/global pairs; all six levels resident),
    gemma2-27b, qwen3-32b (K2 at G 8) and mixtral-8x7b cut to 16 layers with
    all 8 experts (one engine resident; each trace's memory reckoned first),
@@ -102,7 +102,7 @@ Phases, each of which fails the run with a non-zero exit code:
    bf16 limits, K1 and K5 launches, step time and memory of each). Then, the
    same way, each memory reckoned first: gemma2-2b at full width and depth
    (2 x 5120 tokens in 2 microbatches: past its 4096 window, so the local
-   layers' window masks pairs in K1 and K5; K1 on ``mma`` and K5 on ``wgmma`` at D 256)
+   layers' window masks pairs in K1 and K5; K1 and K5 on ``wgmma`` at D 256)
    and mixtral-8x7b at every width with all 8 experts, cut to 2 layers (8 x
    512; ``wgmma``; the loss with its load-balance term), every K1 and K5
    call of their first steps held against the plain version on its own
@@ -125,7 +125,7 @@ Phases, each of which fails the run with a non-zero exit code:
    kernel's launch count must stay 0 across the phase;
 7. dryrun: ``repro_torch.launch.dryrun.run_cell`` with the kernels on, at
    every published width, on phi4-mini-3.8b's ``train_4k``, ``prefill_32k``
-   and ``decode_32k``, gemma2-2b's ``prefill_32k`` (K1's ``mma`` route at
+   and ``decode_32k``, gemma2-2b's ``prefill_32k`` (K1's ``wgmma`` route at
    bf16, D 256, S up to 8192), qwen3-32b's ``decode_32k`` (K2 at G = 8 over
    32768 slots) and rwkv6-1.6b's ``prefill_32k`` (K4) and ``long_500k``: each
    cell's step runs at one data shard's batch of the reference's mesh at 2
@@ -407,12 +407,12 @@ def assert_k1_wgmma(where, n):
 
 # the route every K1 launch of a bf16 run must take, by head dim: a table of
 # its own, so that a wrong change to the kernel's ``route`` fails the traces
-K1_ROUTE_BY_HEAD_DIM = {64: "wgmma", 128: "wgmma", 256: "mma"}
+K1_ROUTE_BY_HEAD_DIM = {64: "wgmma", 128: "wgmma", 256: "wgmma"}
 
 
 def k1_route(cfg) -> str:
     """The route every K1 launch of a bf16 run of ``cfg`` must take:
-    ``mma`` at head dim 256 (gemma2-2b), ``wgmma`` at 64 and 128."""
+    ``wgmma`` at head dims 64, 128 and 256 (gemma2-2b)."""
     return K1_ROUTE_BY_HEAD_DIM[cfg.head_dim]
 
 
@@ -550,6 +550,23 @@ def _visible_pairs(sq, s, causal, window, q_offset):
     return int(m.sum())
 
 
+# K1's bf16 D 256 cases (the wgmma route): name, then b, h, kv, sq, s, d,
+# window, softcap, q_offset, causal
+D256_FLASH_CASES = (
+    ("ragged sq77 s77 g2", (2, 4, 2, 77, 77, 256, None, 0.0, 0, True)),
+    ("ragged sq200 s200 window64 g1", (1, 4, 4, 200, 200, 256, 64, 0.0, 0, True)),
+    ("sq333 g8 softcap50", (1, 16, 2, 333, 333, 256, None, 50.0, 0, True)),
+    ("window64 q_offset100 g2", (2, 4, 2, 90, 190, 256, 64, 0.0, 100, True)),
+    ("blind rows window32 g2", (2, 4, 2, 64, 200, 256, 32, 0.0, 220, True)),
+    ("blind rows only softcap30 g8", (1, 16, 2, 128, 300, 256, 64, 30.0, 400, True)),
+    ("non-causal sq100 s300 g2", (1, 4, 2, 100, 300, 256, None, 0.0, 0, False)),
+    ("non-causal sq300 s77 g1", (1, 4, 4, 300, 77, 256, None, 0.0, 0, False)),
+    ("softcap30 g2", (2, 8, 4, 256, 256, 256, None, 30.0, 0, True)),
+    ("s1 g2", (2, 8, 4, 1, 1, 256, None, 0.0, 0, True)),
+    ("served gemma2-2b softcap50", (8, 8, 4, 512, 512, 256, None, 50.0, 0, True)),
+)
+
+
 def flash_cases():
     bf, f32 = torch.bfloat16, torch.float32
     # name, dtype, b, h, kv, sq, s, d, window, softcap, q_offset, causal; the
@@ -593,6 +610,13 @@ def flash_cases():
         ("wgmma blind rows non-causal d64 g1", bf, 1, 4, 4, 100, 150, 64, 40, 0.0, 150, False),
         ("wgmma blind rows only d128 g8", bf, 1, 16, 2, 128, 300, 128, 64, 30.0, 400, True),
         ("mma blind rows d16", bf, 2, 4, 2, 40, 40, 16, 8, 0.0, 40, True),
+        # the wgmma route at D 256 (gemma2's head dim; 256-thread blocks that
+        # issue their own copies, 80-row K/V stages): ragged Sq and S, G 1 / 2
+        # / 8, window with q_offset, rows that see no column, non-causal with
+        # Sq != S, soft caps 50 and 30, S 1, gemma2-2b's served shape, each on
+        # the model's strided views and contiguous
+        *[(f"wgmma d256 {tag}{suffix}", bf, *shape)
+          for tag, shape in D256_FLASH_CASES for suffix in ("", " contiguous")],
         ("fma blind rows d64", f32, 2, 4, 2, 64, 100, 64, 16, 0.0, 100, True),
         ("fma blind rows softcap d128", f32, 1, 4, 1, 70, 130, 128, 50, 30.0, 150, True),
     ]
@@ -617,6 +641,8 @@ def check_flash(device, timer):
         kw = dict(causal=causal, window=window, softcap=cap, q_offset=off,
                   return_lse=True)
         rt = fa_k.route(dt, d)
+        if name.startswith("wgmma d256"):           # every operand read in place
+            assert all(fa_k._aligned_view(x) is x for x in (q, k, v)), name
         before = fa_k.launches_by_route[rt]
         out, lse = fa_k.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -2095,7 +2121,7 @@ def ring_check(device, args, cfg=None, batch=RING_BATCH, prompt_len=RING_PROMPT,
     the kernels-off path's greedy tokens, so that a near-tie cannot send them
     down different sequences.
 
-    * bf16: the prefill (K1 on ``mma``, D 256, window 4096 over S 4608,
+    * bf16: the prefill (K1 on ``wgmma``, D 256, window 4096 over S 4608,
       soft cap 50) and every decode step (K2 at D 256, G 2, soft cap 50 over
       the 4096-slot ring and 5120 slots). Held: every K1 and K2 call of the
       kernels-on path against its plain version on the same q, caches and
@@ -3252,9 +3278,10 @@ def dryrun_replay(device, timer, calls, label="dryrun"):
 def dryrun_kernel_shapes(device, timer):
     """K1 and K2 at two shapes the dry-run cells give them for the first
     time, against their plain versions (the serving tolerance) and timed
-    beside them and SDPA, contiguous: K1 on the ``mma`` route at gemma2-2b's prefill
+    beside them and SDPA, contiguous: K1 on the ``wgmma`` route at gemma2-2b's prefill
     (q (2, 8, 8192, 256), k/v (2, 4, 8192, 256) bf16, causal, soft cap 50;
-    SDPA has no soft cap and runs without it), K2 on its tensor-core
+    SDPA has no soft cap and runs without it, so K1 is timed at cap 0 too,
+    like for like), K2 on its tensor-core
     instance at qwen3-32b's decode (q (8, 8, 8, 128), k/v (8, 32768, 8, 128)
     bf16, every slot valid; its splits, cluster and route printed, and the
     other cluster size timed beside the rule's), and K5 at gemma2-2b's train
@@ -3264,12 +3291,18 @@ def dryrun_kernel_shapes(device, timer):
     rows = {}
     b, h, kv, s, d = 2, 8, 4, 8192, 256
     q, k, v = _flash_inputs(gen, b, h, kv, s, s, d, dt, device)
-    assert fa_k.route(dt, d) == "mma"
+    assert fa_k.route(dt, d) == "wgmma"
     fn = lambda: fa_k.flash_attention(q, k, v, softcap=50.0)  # noqa: E731
     err = _check("dryrun flash[d256]", fn(), fa_k.flash_attention_plain(q, k, v, softcap=50.0),
                  TOL[dt])
+    before = dict(fa_k.launches_by_route)
     ms = timer(fn, iters=7)
+    assert fa_k.launches_by_route["wgmma"] > before["wgmma"], "dryrun flash[d256] route"
     dev_ms, _ = device_ms(fn, iters=7)
+    fn0 = lambda: fa_k.flash_attention(q, k, v)  # noqa: E731
+    err0 = _check("dryrun flash[d256] cap 0", fn0(), fa_k.flash_attention_plain(q, k, v),
+                  TOL[dt])
+    ms_cap0 = timer(fn0, iters=7)
     plain_ms = timer(lambda: fa_k.flash_attention_plain(q, k, v, softcap=50.0), warmup=1,
                      iters=3)
     try:
@@ -3279,15 +3312,20 @@ def dryrun_kernel_shapes(device, timer):
     except (TypeError, RuntimeError):
         ke, ve = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
         lib = lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)  # noqa: E731
+    _check("dryrun flash[d256] cap 0 vs library", fn0(), lib(), TOL[dt])
     library_ms = timer(lib, iters=7)
     nbytes = (2 * b * h * s * d + 2 * b * kv * s * d) * 2
     flops = 4 * d * b * h * _visible_pairs(s, s, True, None, 0)
     t_b, t_f = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    print(f"  dryrun flash[d256]: route wgmma {ms:.4f} ms at cap 50, {ms_cap0:.4f} ms at cap 0 "
+          f"(error {err0:.3e}), SDPA {library_ms:.4f} ms")
     rows["flash_attention"] = {
         "shape": f"q({b},{h},{s},{d}) kv({b},{kv},{s},{d}) bf16 causal softcap 50, "
-                 f"route mma (gemma2-2b prefill)",
+                 f"route wgmma (gemma2-2b prefill)",
         "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "library_note": "SDPA without the soft cap",
+        "ms_softcap0": ms_cap0, "max_abs_err_softcap0": err0,
+        "library_ms": library_ms, "library_note": "SDPA without the soft cap, beside "
+                                                  "ms_softcap0",
         "bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
     del q, k, v
     torch.cuda.empty_cache()

@@ -25,9 +25,10 @@
 //     inputs, no tensor-core rounding), 256 threads a block. This path is
 //     bound by its own arithmetic; the parity tests use it, the serving path
 //     (bf16) does not.
-// bf16 at D = 64 and 128 (the serving and training shapes) runs instead on
-// the `wgmma` + TMA kernel of flash_attention_sm90.cu; these two paths keep
-// fp32 and the other head dims (16 in the smoke configs, 256 for gemma2).
+// bf16 at D = 64, 128 and 256 (the serving and training shapes, gemma2's
+// head dim) runs instead on the `wgmma` + TMA kernel of
+// flash_attention_sm90.cu; these two paths keep fp32 and bf16 at D = 16 (the
+// smoke configs).
 // What the design does about the work it can avoid:
 //   * the loop visits only the KV tiles a q tile can see: it stops at the
 //     causal diagonal and, with a window, starts at the first tile holding a
@@ -466,23 +467,20 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(FlashArgs a)
 template <int D, int BN>
 int launch_mma(const FlashArgs& a, cudaStream_t stream) {
   constexpr size_t smem = (size_t)(BM + 2 * BN) * (D + 8) * sizeof(__nv_bfloat16);
+  static_assert(smem <= 48 * 1024, "above 48 KB the attribute would have to be set");
   auto kern = flash_fwd_mma_kernel<D, BN>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   dim3 grid((a.Sq + BM - 1) / BM, a.H, a.B);
   kern<<<grid, kMmaThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// D = 64 and 128 in bf16 are the `wgmma` route's (flash_attention_sm90.cu).
+// D = 64, 128 and 256 in bf16 are the `wgmma` route's (flash_attention_sm90.cu).
 int launch_mma_d(const FlashArgs& a, cudaStream_t stream) {
   switch (a.D) {
     case 16: return launch_mma<16, 64>(a, stream);
-    case 256: return launch_mma<256, 32>(a, stream);
     case 64:
-    case 128: return -4;
+    case 128:
+    case 256: return -4;
     default: return -1;
   }
 }
@@ -516,8 +514,8 @@ int launch_d(const FlashArgs& a, cudaStream_t stream) {
 // Returns 0, a cudaError_t of the launch, -1 (head dim), -4 (the route does
 // not take this dtype or head dim) or 1000 + a CUresult (tensor map).
 // dtype: 0 = float32, 1 = bfloat16. route: 0 = fp32 FMAs (float32), 1 =
-// `mma.sync` (bfloat16, D = 16 or 256), 2 = `wgmma` + TMA (bfloat16, D = 64 or
-// 128, flash_attention_sm90.cu); the wrapper picks it from the dtype and the
+// `mma.sync` (bfloat16, D = 16), 2 = `wgmma` + TMA (bfloat16, D = 64, 128 or
+// 256, flash_attention_sm90.cu); the wrapper picks it from the dtype and the
 // head dim alone. Strides are in elements; the last dim of q, k, v and out is
 // contiguous and every row start is 16-byte aligned. window <= 0: no window.
 extern "C" int flash_attention_fwd(
@@ -535,7 +533,7 @@ extern "C" int flash_attention_fwd(
   switch (route) {
     case 0: return launch_d(a, st);
     case 1: return launch_mma_d(a, st);
-    case 2: return (D == 64 || D == 128) ? flash_attention_sm90(a, st) : -4;
+    case 2: return (D == 64 || D == 128 || D == 256) ? flash_attention_sm90(a, st) : -4;
     default: return -4;
   }
 }

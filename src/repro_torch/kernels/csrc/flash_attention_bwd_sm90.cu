@@ -94,22 +94,9 @@ constexpr int kQTile = 128;     // dq kernel: q rows a block
 constexpr int kSmemMax = 232448;   // dynamic shared memory a block may have
 constexpr int kSlack = 128 + 1024; // barriers + alignment slack
 
-// Thread roles. D 64 / 128: a producer warpgroup (threads 0-127) ahead of two
-// consumer warpgroups, registers moved to the consumers by `setmaxnreg`. D 256:
-// the two consumer warpgroups alone (threads 0-255), so that ptxas gives every
-// thread 255 registers (it holds a 384-thread block to 168 whatever
-// `setmaxnreg` asks, and a 288-thread one too, rounding it up to whole
-// warpgroups; a D 256 consumer needs about 190). Their copies are issued
-// inline: thread 0 issues the first stages, the second warpgroup's first
-// thread refills a stage once both have released it, and each consumer
-// thread reads the lse / delta of its own columns from memory.
-template <int D>
-struct Roles {
-  static constexpr bool kInline = D == 256;
-  static constexpr int kThreads = kInline ? 256 : 384;
-  static constexpr int kFirstConsumer = kInline ? 0 : 128;
-  static constexpr int kRefill = 128;    // kInline: the thread that refills a stage
-};
+// Thread roles: `Roles` (sm90.cuh). At D 256 thread 0 issues the first
+// stages, `kRefill` refills a stage once both consumers have released it, and
+// each consumer thread reads the lse / delta of its own columns from memory.
 
 // The most stages (of 4) whose ring leaves `fixed` bytes beside it.
 constexpr int stages(int fixed, int stage) {
@@ -207,12 +194,6 @@ struct FragMask {
 // more registers than the 168 a thread that three warpgroups get.
 enum : int { kBarPFull = 3, kBarPEmpty = 5, kBarTiles = 7 };   // named barriers (+ buffer)
 
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
 
 template <int D>
 __global__ void __launch_bounds__(Roles<D>::kThreads, 1)

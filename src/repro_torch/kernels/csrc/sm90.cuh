@@ -4,7 +4,8 @@
 // dense shares). mbarriers, named barriers,
 // TMA loads and stores through 4-d tensor maps, shared-memory matrix
 // descriptors with the 128-byte swizzle, the `wgmma` shapes K1 and K5 use,
-// the two exps (special-function unit and FMA pipe), and the host side that
+// the thread roles by head dim, the two exps (special-function unit and FMA
+// pipe), the reciprocal, and the host side that
 // encodes a tensor map through the driver's entry point (the library is
 // linked without -lcuda).
 #pragma once
@@ -20,6 +21,24 @@ namespace sm90 {
 constexpr int kRow = 128;      // bytes of one swizzled row: 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// Thread roles of the attention kernels (K1 forward, K5 backward). D 64 /
+// 128: a producer warpgroup (threads 0-127) ahead of two consumer
+// warpgroups, registers moved to the consumers by `setmaxnreg`. D 256: the
+// two consumer warpgroups alone (threads 0-255), so that ptxas gives every
+// thread 255 registers (it holds a 384-thread block to 168 whatever
+// `setmaxnreg` asks, and a 288-thread one too, rounding it up to whole
+// warpgroups; a D 256 consumer holds a 64 x 256 fp32 accumulator, 128
+// registers, and needs about 190). Their copies are issued inline: each
+// kernel says which consumer thread issues which, and `kRefill`, the second
+// warpgroup's first thread, refills a ring stage once both have released it.
+template <int D>
+struct Roles {
+  static constexpr bool kInline = D == 256;
+  static constexpr int kThreads = kInline ? 256 : 384;
+  static constexpr int kFirstConsumer = kInline ? 0 : 128;
+  static constexpr int kRefill = 128;    // kInline: the thread that refills a stage
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -60,6 +79,14 @@ __device__ __forceinline__ void mbar_init_fence() {
 // Barrier `id` over the 128 threads of one warpgroup.
 __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+// Named barrier `id` over `n` threads: wait for all of them, or count this
+// thread's arrival and go on.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 // Makes this thread's shared-memory writes visible to the TMA (async proxy).
 __device__ __forceinline__ void fence_async_smem() {
@@ -164,6 +191,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D(64 x 80) (+)= A(64 x 16, shared) B(16 x 80, shared), both K-major
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D(64 x 256) (+)= A(64 x 16, registers) B(16 x 256, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
                                               uint64_t db, int accumulate) {
@@ -250,9 +295,18 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D(64 x N) (+)= A(64 x 16, shared) B(16 x N, shared), both K-major, N = 32 or 64
+// D(64 x N) (+)= A(64 x 16, shared) B(16 x N, shared), both K-major, N = 32,
+// 64, 80 or 128
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  wgmma_ss_n128(d, da, db, accumulate);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<80>(float (&d)[40], uint64_t da, uint64_t db, int accumulate) {
+  wgmma_ss_n80(d, da, db, accumulate);
+}
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
   wgmma_ss_n64(d, da, db, accumulate);
@@ -289,6 +343,12 @@ __device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// 1 / x on the special-function unit; 1 / inf = 0
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 

@@ -4,10 +4,12 @@ kernels and, beside them, the plain PyTorch version.
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``.
 Three routes, chosen by :func:`route` from the dtype and the head dim alone:
 
-* ``wgmma``: bf16 at D = 64 and 128 (the serving and training shapes),
-  ``csrc/flash_attention_sm90.cu``: TMA-fed K/V ring, producer and consumer
-  warpgroups, both products on ``wgmma``;
-* ``mma``: bf16 at the other head dims (16, 256), ``csrc/flash_attention.cu``,
+* ``wgmma``: bf16 at D = 64, 128 and 256 (the serving and training shapes,
+  gemma2's head dim), ``csrc/flash_attention_sm90.cu``: TMA-fed K/V ring,
+  both products on ``wgmma``; a producer warpgroup ahead of two consumer
+  warpgroups at D 64 / 128, the two consumers issuing their own copies at
+  D 256;
+* ``mma``: bf16 at D = 16 (the smoke configs), ``csrc/flash_attention.cu``,
   ``mma.sync`` with ``cp.async`` copies;
 * ``fma``: fp32, ``csrc/flash_attention.cu``, FMAs on the CUDA cores.
 
@@ -55,7 +57,7 @@ def route(dtype: torch.dtype, d: int) -> str:
     """The kernel a (dtype, head dim) runs on. Nothing else decides it: a
     build or launch error raises, it never moves a call to another route."""
     if dtype == torch.bfloat16:
-        return "wgmma" if d in (64, 128) else "mma"
+        return "wgmma" if d in (64, 128, 256) else "mma"
     return "fma"
 
 

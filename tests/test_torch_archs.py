@@ -126,12 +126,11 @@ def _args(**kw):
 
 @pytest.mark.parametrize("arch", SIX)
 def test_k1_route_assertion_follows_the_head_dim(arch, monkeypatch):
-    """``mma`` for gemma2-2b (D 256), ``wgmma`` for the other five; the
-    assertion passes when every launch took that route and fails when one
-    did not."""
+    """``wgmma`` for all six, gemma2-2b's D 256 included; the assertion
+    passes when every launch took that route and fails when one did not."""
     cs = chip_smoke()
     cfg = cs["arch_config"](arch)
-    want = "mma" if arch == "gemma2-2b" else "wgmma"
+    want = "wgmma"
     assert cs["k1_route"](cfg) == want
     fa, routes = cs["fa_k"], cs["K1_ROUTES"]
     saved = dict(routes)

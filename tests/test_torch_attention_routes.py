@@ -95,7 +95,7 @@ def test_ops_decode_all_masked_row(bf16):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 256, "mma"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 256, "wgmma"),
     (torch.float32, 16, "fma"), (torch.float32, 64, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
 ])
@@ -107,19 +107,23 @@ def test_flash_route_by_dtype_and_head_dim(dtype, d, want):
 def test_flash_routes_are_the_c_entry_points_codes():
     """The wrapper hands the C entry point ``ROUTES.index(route)``; the
     entry point's switch reads 0 = fma, 1 = mma, 2 = wgmma, it refuses a
-    route whose element type is not the dtype's, and the mma route builds
-    only the head dims the wrapper sends it (16 and 256)."""
+    route whose element type is not the dtype's, the mma route builds only
+    the head dim the wrapper sends it (16) and refuses the wgmma route's
+    (64, 128, 256), and the wgmma route takes 64, 128 and 256."""
     import re
     from repro_torch.kernels import _build
     src = (_build.CSRC / "flash_attention.cu").read_text()
     entry = src[src.index('extern "C" int flash_attention_fwd('):]
     cases = dict(re.findall(r"case (\d): return ([A-Za-z_0-9(=| ]+)", entry))
     assert cases["0"].startswith("launch_d") and cases["1"].startswith("launch_mma_d")
-    assert "flash_attention_sm90" in entry[entry.index("case 2:"):]
+    assert ("case 2: return (D == 64 || D == 128 || D == 256) ? flash_attention_sm90(a, st) : -4;"
+            in entry)
     assert "if (dtype != (route == 0 ? 0 : 1)) return -4;" in entry
     mma = src[src.index("int launch_mma_d("):src.index("int launch_mma_d(") + 400]
     built = re.findall(r"case (\d+): return launch_mma<(\d+),", mma)
-    assert [d for d, _ in built] == ["16", "256"] and all(a == b for a, b in built)
+    assert [d for d, _ in built] == ["16"] and all(a == b for a, b in built)
+    refused = mma[mma.index("case 64:"):]
+    assert refused.startswith("case 64:\n    case 128:\n    case 256: return -4;")
     assert fa_k.ROUTES == ("fma", "mma", "wgmma")
 
 

@@ -76,10 +76,57 @@ def test_flash_wgmma_route_vs_plain(device, contiguous, b, h, kv, sq, s, d, wind
     torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("contiguous", [False, True], ids=["strided", "contiguous"])
+@pytest.mark.parametrize("b,h,kv,sq,s,window,softcap,q_offset,causal", [
+    (2, 4, 2, 77, 77, None, 0.0, 0, True),          # ragged Sq and S, G 2
+    (1, 4, 4, 200, 200, 64, 0.0, 0, True),          # ragged, window, G 1
+    (1, 16, 2, 333, 333, None, 50.0, 0, True),      # G 8, gemma2's soft cap
+    (2, 4, 2, 90, 190, 64, 0.0, 100, True),         # window with q_offset
+    (2, 4, 2, 64, 200, 32, 0.0, 220, True),         # rows that see no column
+    (1, 16, 2, 128, 300, 64, 30.0, 400, True),      # only such rows, soft cap 30
+    (1, 4, 2, 100, 300, None, 0.0, 0, False),       # non-causal, Sq < S
+    (1, 4, 4, 300, 77, None, 0.0, 0, False),        # non-causal, Sq > S
+    (2, 8, 4, 1, 1, None, 0.0, 0, True),            # S 1
+    (8, 8, 4, 512, 512, None, 50.0, 0, True)])      # gemma2-2b's served shape
+def test_flash_wgmma_route_at_d256_vs_plain(device, contiguous, b, h, kv, sq, s, window,
+                                            softcap, q_offset, causal):
+    """bf16 at D 256 (gemma2's head dim) runs on the ``wgmma`` + TMA kernel
+    (256-thread blocks that issue their own copies), one launch a call and
+    every operand read in place, out and lse held against the plain version;
+    a row that sees no column gives the mean of V and lse = -1e30 + log S."""
+    bf, d = torch.bfloat16, 256
+    gen = torch.Generator(device=device).manual_seed(17)
+    if contiguous:
+        q, k, v = (torch.randn((b, n, t, d), generator=gen, device=device).to(bf)
+                   for n, t in ((h, sq), (kv, s), (kv, s)))
+    else:
+        q, k, v = (torch.randn((b, t, n, d), generator=gen, device=device)
+                   .to(bf).transpose(1, 2) for n, t in ((h, sq), (kv, s), (kv, s)))
+    assert fa_k.route(bf, d) == "wgmma"
+    assert all(fa_k._aligned_view(x) is x for x in (q, k, v))      # no operand copied
+    before = dict(fa_k.launches_by_route)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+              return_lse=True)
+    out, lse = fa_k.flash_attention(q, k, v, **kw)
+    assert fa_k.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
+    want, want_lse = fa_k.flash_attention_plain(q, k, v, **kw)
+    tol = TOL[bf]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    blind = fa_k.blind_rows(sq, s, window, q_offset, device=device)
+    if blind.any():
+        assert (lse[:, :, blind] == fa_k.NEG_INF).all()
+        mean_v = v.float().mean(dim=2).repeat_interleave(h // kv, dim=1)
+        torch.testing.assert_close(out[:, :, blind].float(),
+                                   mean_v[:, :, None, :].expand(-1, -1, int(blind.sum()), -1),
+                                   atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype,d,rt", [
     (torch.bfloat16, 128, "fma"), (torch.bfloat16, 128, "mma"),
     (torch.bfloat16, 64, "mma"), (torch.float32, 128, "wgmma"),
-    (torch.float32, 16, "mma"), (torch.bfloat16, 16, "wgmma")])
+    (torch.float32, 16, "mma"), (torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, 256, "mma"), (torch.float32, 256, "wgmma")])
 def test_flash_entry_point_refuses_a_route_off_its_dtype_or_head_dim(device, dtype, d, rt):
     """The C entry point returns -4, and launches nothing, for a route that
     does not take the dtype or the head dim (:func:`route` never asks)."""
@@ -382,7 +429,7 @@ def test_jamba_smoke_kernels_on_vs_off(device):
 
 @pytest.mark.parametrize("dtype,d,rt", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 16, "mma"),
-    (torch.bfloat16, 256, "mma"), (torch.float32, 64, "fma"), (torch.float32, 128, "fma")])
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "fma"), (torch.float32, 128, "fma")])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "non-causal"])
 def test_flash_row_that_sees_no_column_on_every_route(device, dtype, d, rt, causal):
     """Rows past S - 1 + window see no column: out is the mean of V and lse

@@ -27,6 +27,7 @@ FLASH_SHAPES = [
     (1, 4, 4, 128, 64),       # MHA
     (2, 8, 2, 256, 64),       # GQA 4:1
     (1, 4, 1, 192, 128),      # MQA, ragged seq vs block
+    (1, 4, 2, 192, 256),      # gemma2's head dim, GQA 2:1
 ]
 FLASH_OPTS = [(None, 0.0), (64, 0.0), (None, 30.0)]
 DECODE_SHAPES = [(2, 4, 2, 256, 64), (1, 8, 1, 128, 128), (2, 2, 8, 192, 64),
