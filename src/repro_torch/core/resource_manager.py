@@ -19,6 +19,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch.core import trace
 from repro_torch.core.cluster import SimBackend
 from repro_torch.core.profiling import NodeProfile, ProfilingTable
 from repro_torch.core.requests import (Dispatch, ExecutionResult, InferenceRequest,
@@ -138,6 +139,10 @@ class GatewayNode:
 
     # ---- event loop ---------------------------------------------------
     def handle(self, ev: Event) -> Optional[ExecutionResult]:
+        with trace.span("gateway.handle"):
+            return self._handle(ev)
+
+    def _handle(self, ev: Event) -> Optional[ExecutionResult]:
         assert self._profiled, "startup() first"
         if ev.kind == "workload":
             return self._handle_workload(ev.request, now=ev.time)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trace
 from repro_torch.distributed.ctx import shard_activation
 from repro_torch.models.layers import ParamSpec, ParamTree
 
@@ -93,9 +94,11 @@ def moe_apply(cfg: ModelConfig, p: ParamTree, x: torch.Tensor) -> torch.Tensor:
     keep = pos < c
     slot = torch.where(keep, se * c + pos, torch.full_like(se, e * c - 1))
 
-    # gather the kept tokens into the expert buffer (E*C, d)
+    # gather the kept tokens into the expert buffer (E*C, d); the boolean
+    # index makes the host wait for the device to count the kept pairs
     buf = x.new_zeros((e * c, d))
-    buf[slot[keep]] = x2[st[keep]]
+    with trace.host_sync("moe.dispatch"):
+        buf[slot[keep]] = x2[st[keep]]
     buf = shard_activation(buf.reshape(e, c, d), ("experts", None, None))
 
     # grouped expert FFN

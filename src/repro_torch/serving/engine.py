@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trace
 from repro_torch.core.batching import BatchFormation
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
@@ -94,18 +95,22 @@ class Engine:
         self.last_stats: dict = {}
 
     def _to_device(self, x, dtype=None):
-        if x is None:
-            return None
         return torch.as_tensor(x, dtype=dtype).to(self.device)
 
     @torch.inference_mode()
     def prefill(self, tokens, embeds=None):
-        tokens = self._to_device(tokens, torch.long)
-        embeds = self._to_device(embeds)
-        logits, raw = model_lib.prefill(self.cfg, self.params, tokens, embeds,
-                                        use_kernels=self.ecfg.use_kernels)
+        # a copy from pageable host memory: the host waits for the stream
+        with trace.host_sync("engine.upload"):
+            tokens = self._to_device(tokens, torch.long)
+        if embeds is not None:
+            with trace.host_sync("engine.upload"):
+                embeds = self._to_device(embeds)
+        with trace.span("engine.prefill"):
+            logits, raw = model_lib.prefill(self.cfg, self.params, tokens, embeds,
+                                            use_kernels=self.ecfg.use_kernels)
         seq_len = tokens.shape[1] + (embeds.shape[1] if embeds is not None else 0)
-        caches = pad_caches(self.cfg, raw, seq_len, self.ecfg.max_len)
+        with trace.span("engine.pad_caches"):
+            caches = pad_caches(self.cfg, raw, seq_len, self.ecfg.max_len)
         lengths = torch.full((tokens.shape[0],), seq_len, dtype=torch.long,
                              device=self.device)
         return logits, caches, lengths
@@ -121,31 +126,46 @@ class Engine:
     def generate(self, tokens, num_steps: int, embeds=None,
                  sample_gen: Optional[torch.Generator] = None) -> np.ndarray:
         """Greedy (or sampled) generation; returns (B, num_steps) tokens.
-        Leaves ``last_stats`` behind: prefill ms, ms per decode step (device
-        time from CUDA events on the card, host clock on the CPU) and whether
-        every logit was finite."""
+        Leaves ``last_stats`` behind: ``prefill_ms`` and ``step_ms`` (one
+        interval a decode step; device time from CUDA events on the card,
+        host clock on the CPU), ``decode_ms_per_step`` (their mean), the
+        host time of prefill and of the decode loop less the waits of the
+        host syncs counted inside each (``prefill_host_ms``,
+        ``decode_host_ms``), the batch's host syncs by name (``syncs``, see
+        ``core.trace``) and whether every logit was finite."""
         clock = _Clock(self.device)
+        counts0, wait0 = dict(trace.counts), trace.wait_s()
+        host0 = time.perf_counter()
         clock.mark()
         logits, caches, lengths = self.prefill(tokens, embeds)
         clock.mark()
+        host1, wait1 = time.perf_counter(), trace.wait_s()
         finite = torch.isfinite(logits).all()
         out = []
         tok = torch.argmax(logits, dim=-1)
         for _ in range(num_steps):
-            out.append(tok)
-            logits, caches, lengths = self.decode(caches, lengths, tok)
-            finite &= torch.isfinite(logits).all()
-            if sample_gen is not None:
-                probs = torch.softmax(logits, dim=-1)
-                tok = torch.multinomial(probs, 1, generator=sample_gen)[:, 0]
-            else:
-                tok = torch.argmax(logits, dim=-1)
-        clock.mark()
-        toks = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
-        prefill_ms, decode_ms = clock.intervals_ms()
+            with trace.span("engine.decode_step"):
+                out.append(tok)
+                logits, caches, lengths = self.decode(caches, lengths, tok)
+                finite &= torch.isfinite(logits).all()
+                if sample_gen is not None:
+                    probs = torch.softmax(logits, dim=-1)
+                    tok = torch.multinomial(probs, 1, generator=sample_gen)[:, 0]
+                else:
+                    tok = torch.argmax(logits, dim=-1)
+                clock.mark()        # ends this step's interval, starts the next's
+        host2, wait2 = time.perf_counter(), trace.wait_s()
+        with trace.host_sync("engine.collect"):
+            toks = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        with trace.host_sync("engine.collect"):
+            finite = bool(finite.item())
+        prefill_ms, *step_ms = clock.intervals_ms()
         self.last_stats = {"prefill_ms": prefill_ms,
-                           "decode_ms_per_step": decode_ms / max(num_steps, 1),
-                           "finite": bool(finite.item())}
+                           "decode_ms_per_step": sum(step_ms) / max(num_steps, 1),
+                           "finite": finite, "step_ms": step_ms,
+                           "prefill_host_ms": (host1 - host0 - (wait1 - wait0)) * 1e3,
+                           "decode_host_ms": (host2 - host1 - (wait2 - wait1)) * 1e3,
+                           "syncs": trace.counts_since(counts0)}
         return toks
 
 

@@ -14,6 +14,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trace
 from repro_torch.models import model as model_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.train import optimizer as opt_lib
@@ -120,10 +121,10 @@ def train_step(cfg: ModelConfig, tcfg: TrainConfig, state: TrainState,
     """One step. ``batch``: {"tokens": (B, S) int} on the state's device.
     Returns (state, {"loss", "grad_norm", "lr"[, "ce", "aux"]}) with 0-d
     tensors on the device; the state's tensors are updated in place. The
-    update is the named profiler range ``train.apply_updates``, so a trace
-    shows the optimizer's share of the step."""
+    update is the profiler range ``train.apply_updates`` (``core.trace.span``),
+    so a trace shows the optimizer's share of the step."""
     loss, metrics, grads = loss_and_grads(cfg, tcfg, state.params, batch)
-    with torch.profiler.record_function("train.apply_updates"):
+    with trace.span("train.apply_updates"):
         params, opt, opt_metrics = opt_lib.apply_updates(tcfg.opt, state.params,
                                                          grads, state.opt)
     del grads
