@@ -3075,7 +3075,12 @@ def _signature(x):
 @contextlib.contextmanager
 def recording_calls(calls):
     """Each entry of ``DRYRUN_ENTRIES`` wrapped to count its call's signature
-    in ``calls`` (a Counter) before it calls through; put back on exit."""
+    in ``calls`` (a Counter) before it calls through; put back on exit. A
+    decode step captured into a CUDA graph (``serving/decode_graph.py``)
+    calls the entries once, at its capture, and launches nothing then: as
+    the launch counters do, ``calls`` follows the graphs' replays
+    (``decode_graph.replayed_calls``) for the steps captured inside."""
+    from repro_torch.serving import decode_graph as dg
     saved = []
     for mod, name in DRYRUN_ENTRIES:
         fn = getattr(mod, name)
@@ -3087,7 +3092,8 @@ def recording_calls(calls):
         saved.append((mod, name, fn))
         setattr(mod, name, rec)
     try:
-        yield calls
+        with dg.replayed_calls(calls):
+            yield calls
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)

@@ -159,6 +159,23 @@ def gqa_attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
     return proj, cache
 
 
+def place_kv(x: torch.Tensor, dst: torch.Tensor, seq_len: int,
+             window: int | None) -> torch.Tensor:
+    """Copy a prompt's K or V, (..., S, KV, D), into the decode slots ``dst``,
+    (..., S_cache, KV, D), and return ``dst``: slot i holds position i; in a
+    sliding window's ring buffer, once the prompt fills it, slot p % S_cache
+    holds position p of the last S_cache positions. Slots past the prompt
+    keep what they held."""
+    s, s_cache = x.shape[-3], dst.shape[-3]
+    if window is None or s < s_cache:
+        dst[..., :s, :, :].copy_(x)
+    else:
+        r = seq_len % s_cache
+        dst[..., r:, :, :].copy_(x[..., s - s_cache:s - r, :, :])
+        dst[..., :r, :, :].copy_(x[..., s - r:, :, :])
+    return dst
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   is_global: bool, dtype=torch.bfloat16, device=None) -> KVCache:
     """Zeroed decode buffers on ``device`` (None: the card)."""

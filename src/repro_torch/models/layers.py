@@ -175,7 +175,8 @@ def embed_param_specs(cfg) -> Dict[str, ParamSpec]:
 def embed_tokens(cfg, p: ParamTree, tokens: torch.Tensor, dtype) -> torch.Tensor:
     x = p["embedding"][tokens].to(dtype)
     if cfg.name.startswith("gemma"):
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
+        # filled on the device: no copy from the host, so a CUDA graph can hold it
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
     return x
 
 

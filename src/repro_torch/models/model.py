@@ -152,14 +152,16 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
 # Serving paths
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None, *,
-            use_kernels: bool = False) -> Tuple[torch.Tensor, Any]:
-    """Process the prompt; returns (last-position logits, raw seq-length
-    caches stacked (L, B, S, KV, D) per group and sublayer). The engine pads
-    these into max_len decode caches."""
+            use_kernels: bool = False, caches=None) -> Tuple[torch.Tensor, Any]:
+    """Process the prompt; returns (last-position logits, caches per group
+    and sublayer). Where ``caches`` (a cache tree) gives a GQA sublayer a
+    decode cache, each layer writes its K/V into it (``attention.place_kv``)
+    and it comes back; every other sublayer's raw prompt-length cache comes
+    back stacked ((L, B, S, KV, D) for GQA), for the engine's ``pad_caches``."""
     x = shard_activation(_embed_inputs(cfg, params, tokens, embeds),
                          ("batch", "seq", None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, caches, _ = _backbone(cfg, params, x, positions, None, None,
+    x, caches, _ = _backbone(cfg, params, x, positions, caches, None,
                              mode="prefill", use_kernels=use_kernels)
     logits = lm_logits(cfg, params["embed"], x[:, -1:])
     return logits[:, 0], caches

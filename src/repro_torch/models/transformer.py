@@ -422,7 +422,10 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
     decode: each unit's cache is a view ``stacked[u]``; the attention writes
     its K/V (or MLA latent) row in place, and a new Mamba or RWKV state is
     copied into the view, so the stacked caches that come back are the ones
-    that went in. prefill: the per-unit caches are stacked, K/V to
+    that went in. prefill: where ``caches_stacked`` gives a sublayer a
+    decode cache (GQA layers), each unit's K/V is placed into its view
+    ``stacked[u]`` (``attention.place_kv``) and that cache comes back; the
+    other sublayers' per-unit caches are stacked, K/V to
     ``(L, B, S, KV, D)``, MLA latents to ``(L, B, S, r)``, Mamba and RWKV
     states to ``(L, B, ...)``; a group of zero units gives caches with
     ``L = 0``. dense (training): ``aux_sum`` adds up the MoE load-balance
@@ -435,6 +438,8 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r} is not one of {REMAT_POLICIES}")
     collected = {f"sub{i}": [] for i in range(len(group.pattern))}
+    placed = {k: c for k, c in (caches_stacked or {}).items()
+              if mode == "prefill" and c is not None}
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
 
     for u in range(group.n_units):
@@ -458,12 +463,17 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
                 for dst, src in zip(c_in, c_out):
                     if src is not dst:
                         dst.copy_(src)
+            elif f"sub{i}" in placed:
+                window = attn.layer_window(cfg, sl.is_global)
+                for dst, src in zip(placed[f"sub{i}"], c_out):
+                    attn.place_kv(src, dst[u], x.shape[1], window)
             elif mode == "prefill":
                 collected[f"sub{i}"].append(c_out)
     if mode == "decode":
         return x, caches_stacked, aux_sum
     if mode == "prefill":
-        return x, {f"sub{i}": (type(cs[0])(*(torch.stack(f) for f in zip(*cs))) if cs
-                               else _empty_stack(cfg, group.pattern[i], x))
-                   for i, cs in enumerate(collected.values())}, aux_sum
+        return x, {k: (placed[k] if k in placed
+                       else type(cs[0])(*(torch.stack(f) for f in zip(*cs))) if cs
+                       else _empty_stack(cfg, group.pattern[i], x))
+                   for i, (k, cs) in enumerate(collected.items())}, aux_sum
     return x, None, aux_sum

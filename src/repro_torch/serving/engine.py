@@ -1,16 +1,17 @@
-"""Serving engine: prefill -> padded decode caches -> batched decode loop.
+"""Serving engine: prefill into decode caches -> batched decode loop.
 
 The engine owns one model variant on one device. The paper's Local Node
 "Inference" state calls into this; the Gateway's dispatcher decides which
 variant each worker group loads.
 
 Cache layout notes:
-  * prefill returns raw seq-length caches; ``pad_caches`` places them into
-    max_len decode buffers. For sliding-window layers the cache is a ring
-    buffer keyed by absolute position (slot = pos % window), so the last
-    `window` tokens are rolled so that slot (pos % window) holds position
-    pos. MLA latents and rope keys are zero-padded to max_len. Mamba and
-    RWKV states are fixed-size and pass through unchanged.
+  * the prefill writes each GQA layer's K/V straight into its max_len
+    decode cache (``attention.place_kv``): fresh zeroed caches, or on the
+    decode graphs' route their fixed ones. For sliding-window layers the
+    cache is a ring buffer keyed by absolute position (slot = pos % window),
+    so the last `window` tokens are rolled so that slot (pos % window) holds
+    position pos. ``pad_caches`` then zero-pads MLA latents and rope keys to
+    max_len; Mamba and RWKV states are fixed-size and pass through.
   * decode writes the caches **in place**: ``Engine.decode`` hands back the
     cache tree it was given. This replaces the buffer donation
     (``donate_argnums``) of the JAX engine.
@@ -35,43 +36,25 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import resolve_device
+from repro_torch.serving import decode_graph
 
 
-def _pad_kv(raw: attn_lib.KVCache, max_len: int, seq_len: int,
-            window: Optional[int]) -> attn_lib.KVCache:
-    """raw.k: (L, B, S, KV, D) stacked per group-unit. Returns decode cache."""
-    def pad_one(x):
-        if window is None:
-            pad = max_len - x.shape[2]
-            return F.pad(x, (0, 0, 0, 0, 0, pad))
-        w = min(window, max_len)
-        # ring buffer: slot = pos % w must hold position pos
-        if x.shape[2] >= w:
-            last = x[:, :, -w:]                      # positions S-w .. S-1
-            return torch.roll(last, shifts=seq_len % w, dims=2)
-        return F.pad(x, (0, 0, 0, 0, 0, w - x.shape[2]))
-    return attn_lib.KVCache(k=pad_one(raw.k), v=pad_one(raw.v))
-
-
-def pad_caches(cfg: ModelConfig, raw_caches, seq_len: int, max_len: int):
-    """Convert prefill caches (raw length) to decode caches (max_len)."""
-    assert max_len >= seq_len, (
-        f"decode max_len={max_len} shorter than prefill length {seq_len} "
-        "(stub-frontend archs prepend stub_embed_len positions)")
+def pad_caches(cfg: ModelConfig, caches, max_len: int):
+    """Convert the prefill's caches to decode caches (max_len): MLA latents
+    and rope keys (prompt length) are zero-padded; GQA K/V, which the
+    prefill wrote into decode caches, and Mamba and RWKV states pass
+    through."""
     out = {}
     for g in tfm.layer_plan(cfg):
         unit_out = {}
         for i, sl in enumerate(g.pattern):
-            c = raw_caches[g.name][f"sub{i}"]
-            if sl.mixer == "gqa":
-                window = attn_lib.layer_window(cfg, sl.is_global)
-                unit_out[f"sub{i}"] = _pad_kv(c, max_len, seq_len, window)
-            elif sl.mixer == "mla":   # (L, B, S, r) latent, (L, B, S, rope) key
+            c = caches[g.name][f"sub{i}"]
+            if sl.mixer == "mla":   # (L, B, S, r) latent, (L, B, S, rope) key
                 pad = max_len - c.latent.shape[2]
                 unit_out[f"sub{i}"] = attn_lib.MLACache(
                     latent=F.pad(c.latent, (0, 0, 0, pad)),
                     k_rope=F.pad(c.k_rope, (0, 0, 0, pad)))
-            else:   # Mamba and RWKV states are fixed-size
+            else:   # GQA decode caches; Mamba and RWKV states are fixed-size
                 unit_out[f"sub{i}"] = c
         out[g.name] = unit_out
     return out
@@ -84,7 +67,9 @@ class EngineConfig:
 
 
 class Engine:
-    """One model variant on one device (None: the card)."""
+    """One model variant on one device (None: the card). ``graphs`` replays
+    greedy decode steps from CUDA graphs where
+    :func:`decode_graph.graph_route` allows it, and is None elsewhere."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: Optional[EngineConfig] = None,
                  device=None):
@@ -93,24 +78,46 @@ class Engine:
         self.ecfg = ecfg if ecfg is not None else EngineConfig()
         self.device = resolve_device(device)
         self.last_stats: dict = {}
+        self.graphs = None
+        if decode_graph.graph_route(cfg, self.device):
+            self.graphs = decode_graph.DecodeGraphs(
+                cfg, params, max_len=self.ecfg.max_len,
+                use_kernels=self.ecfg.use_kernels, device=self.device)
 
     def _to_device(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype).to(self.device)
 
+    def kv_caches(self, batch: int) -> dict:
+        """Zeroed decode caches of the GQA layers for ``batch`` rows (None
+        at every other sublayer), for the prefill to write its K/V into."""
+        return decode_graph.kv_tree(self.cfg, [
+            attn_lib.KVCache(*(torch.zeros((layers, batch) + geo[2:5], dtype=geo[5],
+                                           device=self.device) for _ in "kv"))
+            for geo, layers in decode_graph.kv_layout(self.cfg, self.ecfg.max_len)])
+
     @torch.inference_mode()
-    def prefill(self, tokens, embeds=None):
+    def prefill(self, tokens, embeds=None, out=None):
+        """Returns (last-position logits, decode caches, lengths). Each GQA
+        layer writes its K/V straight into its decode cache: ``out`` where
+        given (the tree of a decode graph's step), else fresh ones
+        (:meth:`kv_caches`); no prompt-length copy of them is kept."""
         # a copy from pageable host memory: the host waits for the stream
         with trace.host_sync("engine.upload"):
             tokens = self._to_device(tokens, torch.long)
         if embeds is not None:
             with trace.host_sync("engine.upload"):
                 embeds = self._to_device(embeds)
+        seq_len = tokens.shape[1] + (embeds.shape[1] if embeds is not None else 0)
+        assert self.ecfg.max_len >= seq_len, (
+            f"decode max_len={self.ecfg.max_len} shorter than prefill length {seq_len} "
+            "(stub-frontend archs prepend stub_embed_len positions)")
+        if out is None:
+            out = self.kv_caches(tokens.shape[0])
         with trace.span("engine.prefill"):
             logits, raw = model_lib.prefill(self.cfg, self.params, tokens, embeds,
-                                            use_kernels=self.ecfg.use_kernels)
-        seq_len = tokens.shape[1] + (embeds.shape[1] if embeds is not None else 0)
+                                            use_kernels=self.ecfg.use_kernels, caches=out)
         with trace.span("engine.pad_caches"):
-            caches = pad_caches(self.cfg, raw, seq_len, self.ecfg.max_len)
+            caches = pad_caches(self.cfg, raw, self.ecfg.max_len)
         lengths = torch.full((tokens.shape[0],), seq_len, dtype=torch.long,
                              device=self.device)
         return logits, caches, lengths
@@ -132,31 +139,50 @@ class Engine:
         host time of prefill and of the decode loop less the waits of the
         host syncs counted inside each (``prefill_host_ms``,
         ``decode_host_ms``), the batch's host syncs by name (``syncs``, see
-        ``core.trace``) and whether every logit was finite."""
+        ``core.trace``), whether every logit was finite, and the decode
+        steps replayed from ``graphs`` and the steps it captured for this
+        call (``graph_steps``, ``graph_captures``)."""
         clock = _Clock(self.device)
         counts0, wait0 = dict(trace.counts), trace.wait_s()
+        graphs = self.graphs if sample_gen is None else None
+        replays0, captures0 = (graphs.replays, graphs.store.captures) if graphs else (0, 0)
         host0 = time.perf_counter()
         clock.mark()
-        logits, caches, lengths = self.prefill(tokens, embeds)
+        if graphs is None:
+            logits, caches, lengths = self.prefill(tokens, embeds)
+        else:
+            step = graphs.step_for(len(tokens))
+            logits, _, lengths = self.prefill(tokens, embeds, out=step.caches)
         clock.mark()
         host1, wait1 = time.perf_counter(), trace.wait_s()
-        finite = torch.isfinite(logits).all()
-        out = []
-        tok = torch.argmax(logits, dim=-1)
-        for _ in range(num_steps):
-            with trace.span("engine.decode_step"):
-                out.append(tok)
-                logits, caches, lengths = self.decode(caches, lengths, tok)
-                finite &= torch.isfinite(logits).all()
-                if sample_gen is not None:
-                    probs = torch.softmax(logits, dim=-1)
-                    tok = torch.multinomial(probs, 1, generator=sample_gen)[:, 0]
-                else:
-                    tok = torch.argmax(logits, dim=-1)
-                clock.mark()        # ends this step's interval, starts the next's
+        if graphs is None:
+            finite = torch.isfinite(logits).all()
+            out = []
+            tok = torch.argmax(logits, dim=-1)
+            for _ in range(num_steps):
+                with trace.span("engine.decode_step"):
+                    out.append(tok)
+                    logits, caches, lengths = self.decode(caches, lengths, tok)
+                    finite &= torch.isfinite(logits).all()
+                    if sample_gen is not None:
+                        probs = torch.softmax(logits, dim=-1)
+                        tok = torch.multinomial(probs, 1, generator=sample_gen)[:, 0]
+                    else:
+                        tok = torch.argmax(logits, dim=-1)
+                    clock.mark()        # ends this step's interval, starts the next's
+            out = torch.stack(out, dim=1)
+        else:
+            graphs.start(step, logits, lengths)
+            finite, out = step.finite, torch.empty((len(tokens), num_steps),
+                                                   dtype=torch.long, device=self.device)
+            for i in range(num_steps):
+                with trace.span("engine.decode_step"):
+                    out[:, i].copy_(step.tok)
+                    graphs.replay(step)
+                    clock.mark()
         host2, wait2 = time.perf_counter(), trace.wait_s()
         with trace.host_sync("engine.collect"):
-            toks = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+            toks = out.cpu().numpy().astype(np.int32)
         with trace.host_sync("engine.collect"):
             finite = bool(finite.item())
         prefill_ms, *step_ms = clock.intervals_ms()
@@ -165,7 +191,10 @@ class Engine:
                            "finite": finite, "step_ms": step_ms,
                            "prefill_host_ms": (host1 - host0 - (wait1 - wait0)) * 1e3,
                            "decode_host_ms": (host2 - host1 - (wait2 - wait1)) * 1e3,
-                           "syncs": trace.counts_since(counts0)}
+                           "syncs": trace.counts_since(counts0),
+                           "graph_steps": graphs.replays - replays0 if graphs else 0,
+                           "graph_captures": (graphs.store.captures - captures0
+                                              if graphs else 0)}
         return toks
 
 

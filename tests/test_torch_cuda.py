@@ -678,3 +678,95 @@ def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# dense bf16 configurations on the decode graph's route: small ones, phi4's
+# GQA at D 64 and gemma2's local ring (window 16, passed by the prompt) at D
+# 128; and phi4 at every published width, 2 layers deep (cuBLAS picks its
+# GEMMs by the widths and the batch, so the served steps' GEMMs run here)
+GRAPH_CASES = {
+    "phi4-mini-3.8b": dict(num_layers=2, d_model=256, num_heads=6, num_kv_heads=2,
+                           head_dim=64, d_ff=512, vocab_size=512),
+    "gemma2-2b": dict(num_layers=4, d_model=256, num_heads=4, num_kv_heads=2,
+                      head_dim=128, d_ff=512, vocab_size=512, sliding_window=16),
+    "phi4-mini-3.8b-full": dict(num_layers=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_decode_graph_replays_equal_the_eager_loop(device, case):
+    """Greedy steps replayed from CUDA graphs against the eager loop on the
+    same weights: tokens and logits equal at batch sizes 3, 8 and 1 bound to
+    one cache (stale slots past the later, shorter prompts), no capture at a
+    warmed batch size, K1 and K2 counted by the launches each replay
+    captured, and so the kernel calls that ``chip_smoke.recording_calls``
+    records, and the caches' and graphs' memory back once the engine goes."""
+    import collections
+    import os
+    import runpy
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+    arch = case.removesuffix("-full")
+    base_cfg = get_config(arch) if case.endswith("-full") else get_smoke_config(arch)
+    cfg = base_cfg.scaled(dtype="bfloat16", **GRAPH_CASES[case])
+    params = init_params(cfg, 0, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ecfg = EngineConfig(max_len=48)
+    graphed, eager = Engine(cfg, params, ecfg, device=device), Engine(cfg, params, ecfg,
+                                                                       device=device)
+    assert graphed.graphs is not None
+    eager.graphs = None
+    gen = torch.Generator().manual_seed(3)
+    steps = 6
+    for n, plen in ((3, 30), (8, 24), (1, 20), (3, 18)):
+        toks = torch.randint(1, cfg.vocab_size, (n, plen), generator=gen)
+        with torch.inference_mode():
+            logits, caches, lengths = eager.prefill(toks)
+            want = []
+            for _ in range(steps):
+                logits, caches, lengths = eager.decode(caches, lengths, logits.argmax(-1))
+                want.append(logits.clone())
+            g = graphed.graphs
+            st = g.step_for(n)
+            logits, _, lengths = graphed.prefill(toks, out=st.caches)
+            g.start(st, logits, lengths)
+            got = []
+            for _ in range(steps):
+                g.replay(st)
+                got.append(st.logits.clone())
+        for i, (w, x) in enumerate(zip(want, got)):
+            assert torch.equal(w, x), (n, plen, i, (w - x).abs().max().item())
+        k1, k2 = fa_k.launches, dec_k.launches
+        out = graphed.generate(toks, steps)
+        assert graphed.last_stats["graph_captures"] == 0           # warmed by the above
+        assert graphed.last_stats["graph_steps"] == steps
+        assert (fa_k.launches - k1, dec_k.launches - k2) == (cfg.num_layers,
+                                                             cfg.num_layers * steps)
+        assert (out == eager.generate(toks, steps)).all()
+        assert eager.last_stats["graph_steps"] == 0
+    assert sorted(graphed.graphs.steps) == [1, 3, 8]
+    del graphed, g, st, logits, caches, lengths, want, got, w, x
+    torch.cuda.empty_cache()
+    # what stays is cuBLAS's workspace for the capture stream, once a process
+    assert 0 <= torch.cuda.memory_allocated() - base <= 64 << 20
+    base = torch.cuda.memory_allocated()
+    # an engine built after the last graph went captures into a new pool, and
+    # its cache, graphs and pool go with it
+    again = Engine(cfg, params, ecfg, device=device)
+    cs = runpy.run_path(os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                                     "chip_smoke.py"), run_name="chip_smoke")
+    calls = collections.Counter()
+    with cs["recording_calls"](calls):
+        got = again.generate(toks, steps)
+    assert (got == eager.generate(toks, steps)).all()
+    assert again.last_stats["graph_captures"] == 1
+    per_entry = collections.Counter()
+    for (name, _, _), n in calls.items():
+        per_entry[name.replace("_model", "")] += n
+    assert +per_entry == {"flash_attention": cfg.num_layers,
+                          "decode_attention": cfg.num_layers * steps}
+    del again
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() == base

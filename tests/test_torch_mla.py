@@ -146,7 +146,7 @@ def test_pad_caches_mla_matches_jax(s, max_len):
     raw = _raw_mla_caches(cfg, 2, s, 7)
     got = pad_caches(cfg, {g: {k: attn.MLACache(*(to_torch(a) for a in v))
                                for k, v in u.items()} for g, u in raw.items()},
-                     s, max_len)
+                     max_len)
     want = jax_pad_caches(jcfg, {g: {k: jattn.MLACache(*(to_jax(a) for a in v))
                                      for k, v in u.items()} for g, u in raw.items()},
                           s, max_len)

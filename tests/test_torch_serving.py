@@ -16,10 +16,11 @@ from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import _pad_kv as jax_pad_kv
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import forward, init_params
-from repro_torch.models.attention import KVCache
+from repro_torch.models import model as model_lib
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import KVCache, layer_window, place_kv
 from repro_torch.models.convert import params_from_jax
-from repro_torch.serving.engine import (BatchScheduler, Engine, EngineConfig,
-                                        _pad_kv)
+from repro_torch.serving.engine import BatchScheduler, Engine, EngineConfig
 
 from _torch_util import as_np, numpy_params, tree_to_jax
 
@@ -89,16 +90,24 @@ def test_sliding_window_ring_buffer(use_kernels):
         l_pref, caches, lengths = eng.decode(caches, lengths, nxt)
 
 
+def _place(x, max_len, seq_len, window):
+    """A prompt's stacked K and V placed into fresh zeroed decode caches, as
+    the engine's prefill places them."""
+    s_cache = max_len if window is None else min(window, max_len)
+    t = torch.from_numpy(x)
+    return KVCache(*(place_kv(t, t.new_zeros(t.shape[:2] + (s_cache,) + t.shape[3:]),
+                              seq_len, window) for _ in "kv"))
+
+
 @pytest.mark.parametrize("S,w", [(13, 8), (16, 8), (8, 8), (9, 4), (5, 8)])
 def test_pad_caches_ring_slot_invariant(S, w):
-    """After ``_pad_kv`` a sliding-window cache holds position p in slot
+    """After ``place_kv`` a sliding-window cache holds position p in slot
     p % window for each of the last ``window`` prefill positions, and the
-    buffer equals the JAX engine's."""
+    buffer equals the one the JAX engine's ``_pad_kv`` pads to."""
     L, B, KV, D = 2, 1, 1, 4
     x = np.broadcast_to(np.arange(S, dtype=np.float32)[None, None, :, None, None],
                         (L, B, S, KV, D)).copy()
-    out = _pad_kv(KVCache(k=torch.from_numpy(x), v=torch.from_numpy(x)),
-                  max_len=32, seq_len=S, window=w)
+    out = _place(x, max_len=32, seq_len=S, window=w)
     ref = jax_pad_kv(JaxKVCache(k=jnp.asarray(x), v=jnp.asarray(x)),
                      max_len=32, seq_len=S, window=w)
     np.testing.assert_array_equal(out.k.numpy(), np.asarray(ref.k))
@@ -113,11 +122,40 @@ def test_pad_caches_ring_slot_invariant(S, w):
             np.testing.assert_array_equal(out.k.numpy()[:, :, p],
                                           np.full((L, B, KV, D), p, np.float32))
     # unwindowed: zero-padded to max_len, identity layout
-    lin = _pad_kv(KVCache(k=torch.from_numpy(x), v=torch.from_numpy(x)),
-                  max_len=32, seq_len=S, window=None)
+    lin = _place(x, max_len=32, seq_len=S, window=None)
     assert lin.k.shape[2] == 32
     np.testing.assert_array_equal(lin.k.numpy()[:, :, :S], x)
     assert float(lin.k[:, :, S:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("arch,scaled", [
+    ("phi4-mini-3.8b", {}), ("gemma2-2b", {"sliding_window": 8}),
+    ("mixtral-8x7b", {}), ("jamba-1.5-large-398b", {})])
+def test_prefill_writes_gqa_kv_into_decode_caches(arch, scaled):
+    """The engine's prefill hands back every GQA layer's K/V in a decode
+    cache of ``max_len`` slots (the window's ring where it has one), equal
+    to the model's raw prompt-length K/V placed into zeros; Mamba states
+    come back as the model made them."""
+    cfg = get_smoke_config(arch).scaled(dtype="float32", **scaled)
+    params = init_params(cfg, 0, device="cpu")
+    max_len, s = 20, 13
+    eng = Engine(cfg, params, EngineConfig(max_len=max_len), device="cpu")
+    toks = np.random.default_rng(2).integers(1, cfg.vocab_size, size=(2, s))
+    _, caches, _ = eng.prefill(toks)
+    with torch.inference_mode():
+        _, raw = model_lib.prefill(cfg, params, torch.from_numpy(toks), use_kernels=True)
+    kinds = set()
+    for g in tfm.layer_plan(cfg):
+        for i, sl in enumerate(g.pattern):
+            got, want = caches[g.name][f"sub{i}"], raw[g.name][f"sub{i}"]
+            kinds.add(sl.mixer)
+            if sl.mixer == "gqa":
+                window = layer_window(cfg, sl.is_global)
+                slots = max_len if window is None else min(window, max_len)
+                assert got.k.shape == want.k.shape[:2] + (slots,) + want.k.shape[3:]
+                want = [place_kv(t, t.new_zeros(got.k.shape), s, window) for t in want]
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert "gqa" in kinds
 
 
 GENERATE_CASES = [

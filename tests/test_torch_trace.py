@@ -93,7 +93,8 @@ def test_last_stats_keys_leave_the_harness_keys_free():
     _, eng, toks = _engine("phi4-mini-3.8b", None, 0)
     eng.generate(toks, num_steps=1)
     assert set(eng.last_stats) == {"prefill_ms", "decode_ms_per_step", "finite", "step_ms",
-                                   "prefill_host_ms", "decode_host_ms", "syncs"}
+                                   "prefill_host_ms", "decode_host_ms", "syncs",
+                                   "graph_steps", "graph_captures"}
     harness_keys = {"rid", "level", "n", "plen", "out", "host_s", "prompts", "served",
                     "in_span"}
     assert not set(eng.last_stats) & harness_keys
