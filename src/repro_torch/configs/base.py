@@ -14,7 +14,16 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class MoEConfig:
-    num_experts: int
+    """A mixture of experts. The defaults route by a softmax top-k over the
+    experts held. DeepSeek-V3's router (``scoring="sigmoid"``) scores with a
+    sigmoid, adds a correction bias for the choice alone, keeps the
+    ``topk_group`` of ``n_group`` expert groups whose two best biased scores
+    sum highest, takes the top k within them, and gates by the unbiased
+    scores renormalised. ``num_routed`` is the router's width over all the
+    deployment's experts where the layer holds fewer: this layer holds
+    experts ``0 .. num_experts - 1`` (expert parallelism's share of rank
+    0)."""
+    num_experts: int                 # experts this layer holds
     top_k: int
     d_ff_expert: int                 # per-expert hidden dim
     num_shared_experts: int = 0      # deepseek-style always-on shared experts
@@ -23,6 +32,24 @@ class MoEConfig:
     first_moe_layer: int = 0
     moe_every: int = 1
     router_scale: float = 1.0        # routed-expert output scaling (deepseek 2.5)
+    scoring: str = "softmax"         # softmax | sigmoid (with a correction bias)
+    n_group: int = 1                 # expert groups of the router
+    topk_group: int = 1              # groups a token's experts are taken from
+    num_routed: int = 0              # the router's width; 0: num_experts
+
+    def __post_init__(self):
+        if self.scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown MoE scoring {self.scoring!r}")
+        w = self.router_width
+        if not (0 < self.num_experts <= w and w % self.n_group == 0
+                and 0 < self.topk_group <= self.n_group):
+            raise ValueError(f"inconsistent router: {self}")
+        if self.n_group > 1 and self.scoring != "sigmoid":
+            raise ValueError("group-limited routing is implemented for sigmoid scoring")
+
+    @property
+    def router_width(self) -> int:
+        return self.num_routed or self.num_experts
 
 
 @dataclass(frozen=True)
@@ -33,6 +60,29 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class RopeScaling:
+    """YaRN (arXiv:2309.00071) in DeepSeek-V3's form (``modeling_deepseek.py``:
+    ``DeepseekV3YarnRotaryEmbedding``, ``yarn_get_mscale``): the inverse
+    frequencies ramp from the extrapolated ones (below the correction dim of
+    ``beta_fast``) to the interpolated ones, divided by ``factor`` (above
+    that of ``beta_slow``); cos and sin are scaled by ``mscale(factor,
+    mscale) / mscale(factor, mscale_all_dim)``, and MLA's softmax scale by
+    ``mscale(factor, mscale_all_dim)**2``. Field names as in the published
+    ``rope_scaling``."""
+    type: str = "yarn"
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    def __post_init__(self):
+        if self.type != "yarn":
+            raise ValueError(f"rope scaling {self.type!r} is not implemented (yarn is)")
 
 
 @dataclass(frozen=True)
@@ -65,6 +115,7 @@ class ModelConfig:
     final_logit_softcap: float = 0.0  # gemma2: 30.0
     rope_theta: float = 10000.0
     pos_kind: str = "rope"           # rope | sinusoidal | none
+    rope_scaling: Optional[RopeScaling] = None   # YaRN (MLA only); None: plain RoPE
 
     # --- mlp flavour ---
     mlp_kind: str = "swiglu"         # swiglu | geglu | gelu
@@ -97,6 +148,17 @@ class ModelConfig:
     stub_embed_len: int = 0          # number of precomputed embedding positions
 
     dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        # a configuration read from a file gives its sub-configurations as
+        # mappings: they become the dataclasses
+        for name, kind in (("moe", MoEConfig), ("mla", MLAConfig), ("ssm", SSMConfig),
+                           ("rope_scaling", RopeScaling)):
+            v = getattr(self, name)
+            if isinstance(v, dict):
+                object.__setattr__(self, name, kind(**v))
+        if self.rope_scaling is not None and self.attention_kind != "mla":
+            raise ValueError("rope_scaling (YaRN) is implemented for MLA only")
 
     # ------------------------------------------------------------------
     @property
@@ -204,7 +266,7 @@ class ModelConfig:
             m = self.moe
             n_routed = m.top_k if active_only else m.num_experts
             p += (n_routed + m.num_shared_experts) * self._mlp_params(m.d_ff_expert)
-            p += d * m.num_experts  # router
+            p += d * m.router_width  # router
         else:
             p += self._mlp_params(self.d_ff)
         return p

@@ -19,9 +19,10 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trace
 from repro_torch.distributed.ctx import shard_activation
 from repro_torch.models.layers import (ParamSpec, apply_rope, resolve_device,
-                                       rms_norm, softcap)
+                                       rms_norm, softcap, yarn_get_mscale)
 
 NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
 
@@ -214,7 +215,14 @@ def mla_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def _mla_scale(cfg: ModelConfig) -> float:
-    return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
+    """``1 / sqrt(nope + rope)``, times YaRN's ``mscale(factor,
+    mscale_all_dim)**2`` where the rope dims take YaRN (DeepSeek-V3's
+    ``softmax_scale``)."""
+    scale = 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
+    rs = cfg.rope_scaling
+    if rs is not None and rs.mscale_all_dim:
+        scale *= yarn_get_mscale(rs.factor, rs.mscale_all_dim) ** 2
+    return scale
 
 
 def _mla_qkv_latent(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
@@ -225,12 +233,13 @@ def _mla_qkv_latent(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tenso
     q_l = rms_norm(x @ p["w_dq"].to(x.dtype), p["q_norm"], cfg.norm_eps)
     q = torch.einsum("bsl,lhk->bshk", q_l, p["w_uq"].to(x.dtype))
     q_nope = q[..., :m.qk_nope_head_dim]
-    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta,
+                        cfg.rope_scaling)
 
     dkv = x @ p["w_dkv"].to(x.dtype)
     latent = rms_norm(dkv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(dkv[..., None, m.kv_lora_rank:], positions,
-                        cfg.rope_theta)[..., 0, :]              # (B,S,rope)
+                        cfg.rope_theta, cfg.rope_scaling)[..., 0, :]   # (B,S,rope)
     return q_nope, q_rope, latent, k_rope
 
 
@@ -243,7 +252,12 @@ def mla_attention_dense(cfg: ModelConfig, p, x: torch.Tensor,
     """Full-sequence MLA (train / prefill): decompress K/V directly. Both
     score products are fp32 on the model-dtype operands (the JAX package's
     ``preferred_element_type=float32``); the probabilities go back to
-    ``v.dtype`` for the value product."""
+    ``v.dtype`` for the value product. Runs inside the span ``attn.mla``."""
+    with trace.span("attn.mla"):
+        return _mla_dense(cfg, p, x, positions)
+
+
+def _mla_dense(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
     s = x.shape[1]
     q_nope, q_rope, latent, k_rope = _mla_qkv_latent(cfg, p, x, positions)
     k_nope = torch.einsum("bsl,lhk->bshk", latent, p["w_uk"].to(x.dtype))
@@ -267,7 +281,14 @@ def mla_attention_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: MLACache,
 
     The new latent and ``k_rope`` rows are written into ``cache`` **in
     place** at ``lengths`` before attending (the mask is ``slot <=
-    lengths``); the returned cache is the same storage."""
+    lengths``); the returned cache is the same storage. Runs inside the span
+    ``attn.mla``."""
+    with trace.span("attn.mla"):
+        return _mla_decode(cfg, p, x, cache, lengths)
+
+
+def _mla_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: MLACache,
+                lengths: torch.Tensor) -> Tuple[torch.Tensor, MLACache]:
     s_cache = cache.latent.shape[1]
     q_nope, q_rope, latent_t, k_rope_t = _mla_qkv_latent(cfg, p, x, lengths[:, None])
     # absorb w_uk into q: (B,1,H,nope) @ (lora,H,nope) -> (B,1,H,lora)

@@ -9,6 +9,7 @@ names as the JAX package's pytree.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -108,14 +109,56 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def yarn_get_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's attention temperature, ``0.1 mscale ln(scale) + 1`` (1 at no
+    scaling), as DeepSeek-V3's ``yarn_get_mscale``."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_correction_range(dim: int, theta: float, scaling) -> Tuple[int, int]:
+    """The rotary dims between which YaRN ramps (``yarn_find_correction_range``):
+    the dim whose wavelength turns ``beta_fast`` and ``beta_slow`` times over
+    the original context, floored and ceiled, clipped to [0, dim - 1]."""
+    def dim_of(rotations):
+        return (dim * math.log(scaling.original_max_position_embeddings
+                               / (rotations * 2 * math.pi))) / (2 * math.log(theta))
+    low = math.floor(dim_of(scaling.beta_fast))
+    high = math.ceil(dim_of(scaling.beta_slow))
+    return max(low, 0), min(high, dim - 1)
+
+
+@functools.lru_cache(maxsize=16)
+def yarn_freqs(head_dim: int, theta: float, scaling, device) -> torch.Tensor:
+    """YaRN's inverse frequencies (``DeepseekV3YarnRotaryEmbedding``):
+    ``freq / factor`` past the ramp, ``freq`` before it, mixed linearly along
+    it. Cached a device: the table is built once, not at every layer (and
+    outside inference mode, so that training may use it too)."""
+    low, high = yarn_correction_range(head_dim, theta, scaling)
+    with torch.inference_mode(False):
+        extra = rope_freqs(head_dim, theta, device)
+        ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+                / max(high - low, 0.001)).clamp(0, 1)
+        return extra / scaling.factor * ramp + extra * (1 - ramp)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               scaling=None) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq). Split-halves
-    form: the two halves of head_dim rotate against each other."""
+    form: the two halves of head_dim rotate against each other. ``scaling``
+    (a ``RopeScaling``) takes YaRN's frequencies and cos/sin scale."""
     head_dim = x.shape[-1]
-    freqs = rope_freqs(head_dim, theta, x.device)                 # (hd/2,)
+    if scaling is None:
+        freqs = rope_freqs(head_dim, theta, x.device)             # (hd/2,)
+    else:
+        freqs = yarn_freqs(head_dim, theta, scaling, x.device)
     angles = positions[..., :, None].float() * freqs              # (..., seq, hd/2)
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]
+    if scaling is not None:
+        m = (yarn_get_mscale(scaling.factor, scaling.mscale)
+             / yarn_get_mscale(scaling.factor, scaling.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

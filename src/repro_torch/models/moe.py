@@ -3,13 +3,26 @@
 Dispatch is sort based (a stable argsort by expert, a fixed per-expert
 capacity, a grouped product over the ``(E, C, d)`` expert buffer), as in the
 JAX package: the one-hot ``(T, E, C)`` dispatch einsum would cost
-O(T.E.C.d) FLOPs. Tokens past an expert's capacity are dropped by a mask,
-and ``index_add_`` combines the kept expert outputs, weighted by their
+O(T.E.C.d) FLOPs. Tokens past an expert's capacity are dropped, and
+``index_add_`` combines the kept expert outputs, weighted by their
 renormalised gates.
 
 Covers mixtral (8e top-2), jamba (16e top-2, every other layer) and the MoE
-layers of deepseek-v3 (1 shared + 256 routed top-8, router_scale). One
-device: there is no expert sharding (``shard_activation`` places nothing).
+layers of deepseek-v3 (1 shared + 256 routed top-8, router_scale, its
+sigmoid group-limited router with a correction bias: ``route_grouped``).
+
+Expert parallelism's share. Where the router is wider than the experts held
+(``MoEConfig.num_routed``), the layer routes every token over all of them and
+computes only its own experts' part for the pairs routed to them, with the
+capacity of an expert from the router's width, as one rank of an EP
+deployment does without its exchange; the shared expert is computed as
+always, and the absent experts' part is left out. One device:
+``shard_activation`` places nothing.
+
+Counts. Each call adds to ``trace.tallies`` the (token, expert) pairs routed
+(``moe.pairs``), those routed to experts held here (``moe.pairs_held``) and
+those of them dropped at capacity (``moe.pairs_dropped``), from numbers the
+dispatch's one host sync already brings back.
 """
 from __future__ import annotations
 
@@ -40,11 +53,13 @@ def moe_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
     specs = {
-        "w_router": ParamSpec((d, e), ("d_model", None), scale=0.1),
+        "w_router": ParamSpec((d, m.router_width), ("d_model", None), scale=0.1),
         "we_gate": ParamSpec((e, d, f), ("experts", "d_model", "expert_ff")),
         "we_up": ParamSpec((e, d, f), ("experts", "d_model", "expert_ff")),
         "we_down": ParamSpec((e, f, d), ("experts", "expert_ff", "d_model")),
     }
+    if m.scoring == "sigmoid":       # e_score_correction_bias: the choice's alone
+        specs["router_bias"] = ParamSpec((m.router_width,), (None,), init="zeros")
     if m.num_shared_experts:
         fs = f * m.num_shared_experts
         specs.update({
@@ -71,45 +86,50 @@ def route_topk(cfg: ModelConfig, router_logits: torch.Tensor):
     return gate_vals * m.router_scale, gate_idx
 
 
+def route_grouped(cfg: ModelConfig, router_logits: torch.Tensor, bias: torch.Tensor):
+    """DeepSeek-V3's router (``noaux_tc``), all in float32: sigmoid scores;
+    the choice adds ``bias`` to them; each of ``n_group`` groups scores the
+    sum of its two best biased scores, and the ``topk_group`` best groups
+    are kept; the top k experts of the kept groups are taken (ties to the
+    lower index); their gates are the unbiased scores, renormalised where k
+    > 1 (``norm_topk_prob``), times ``router_scale``. Returns (gates, idx):
+    (T, k)."""
+    m = cfg.moe
+    scores = torch.sigmoid(router_logits.float())
+    choice = scores + bias.float()
+    if m.n_group > 1:
+        t = choice.shape[0]
+        grouped = choice.view(t, m.n_group, -1)
+        group_scores = _topk(grouped, 2)[0].sum(dim=-1)             # (T, G)
+        _, groups = _topk(group_scores, m.topk_group)
+        kept = torch.zeros_like(group_scores, dtype=torch.bool).scatter_(1, groups, True)
+        choice = choice.masked_fill(~kept[:, :, None].expand_as(grouped).reshape(t, -1),
+                                    float("-inf"))
+    _, idx = _topk(choice, m.top_k)
+    gates = scores.gather(1, idx)
+    if m.top_k > 1:
+        gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-20)
+    return gates * m.router_scale, idx
+
+
 def moe_apply(cfg: ModelConfig, p: ParamTree, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+    """x: (B, S, d) -> (B, S, d). The layer holds experts ``0 ..
+    num_experts - 1`` of the router's ``router_width``."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     x2 = x.reshape(t, d)
     e, k = m.num_experts, m.top_k
 
-    router_logits = x2 @ p["w_router"].to(x.dtype)
-    gates, idx = route_topk(cfg, router_logits)                 # (T,k)
+    with trace.span("moe.route"):
+        if m.scoring == "sigmoid":
+            router_logits = x2.float() @ p["w_router"].float()
+            gates, idx = route_grouped(cfg, router_logits, p["router_bias"])
+        else:
+            router_logits = x2 @ p["w_router"].to(x.dtype)
+            gates, idx = route_topk(cfg, router_logits)             # (T,k)
 
-    c = capacity(t, e, k)
-    flat_e = idx.reshape(t * k)
-    flat_t = torch.arange(t, device=x.device).repeat_interleave(k)
-    flat_g = gates.reshape(t * k)
-
-    order = torch.argsort(flat_e, stable=True)
-    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
-    first = torch.searchsorted(se, torch.arange(e, device=x.device), side="left")
-    pos = torch.arange(t * k, device=x.device) - first[se]
-    keep = pos < c
-    slot = torch.where(keep, se * c + pos, torch.full_like(se, e * c - 1))
-
-    # gather the kept tokens into the expert buffer (E*C, d); the boolean
-    # index makes the host wait for the device to count the kept pairs
-    buf = x.new_zeros((e * c, d))
-    with trace.host_sync("moe.dispatch"):
-        buf[slot[keep]] = x2[st[keep]]
-    buf = shard_activation(buf.reshape(e, c, d), ("experts", None, None))
-
-    # grouped expert FFN
-    h = F.silu(torch.bmm(buf, p["we_gate"].to(x.dtype)))
-    h = h * torch.bmm(buf, p["we_up"].to(x.dtype))
-    y = torch.bmm(h, p["we_down"].to(x.dtype)).reshape(e * c, d)
-
-    # combine back, weighted by the (renormalised) gates; a dropped slot
-    # reads a kept row and is weighted by 0
-    contrib = y[slot] * (sg * keep).to(x.dtype)[:, None]
-    out = x.new_zeros((t, d)).index_add_(0, st, contrib)
+    out = _dispatch(p, x2, gates, idx, e, k, m.router_width)
 
     if m.num_shared_experts:
         hs = F.silu(x2 @ p["ws_gate"].to(x.dtype)) * (x2 @ p["ws_up"].to(x.dtype))
@@ -117,12 +137,53 @@ def moe_apply(cfg: ModelConfig, p: ParamTree, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, s, d)
 
 
+def _dispatch(p, x2, gates, idx, e: int, k: int, width: int) -> torch.Tensor:
+    """The pairs routed to the ``e`` experts held here (``0 .. e - 1`` of the
+    router's ``width``) go through them, up to each expert's capacity; the
+    rest are left out. With every expert held (``width == e``) this is the
+    whole layer."""
+    t, d = x2.shape
+    c = capacity(t, width, k)
+    flat_e = idx.reshape(t * k).clamp(max=e)          # every absent expert sorts last
+    flat_t = torch.arange(t, device=x2.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], gates.reshape(t * k)[order]
+    first = torch.searchsorted(se, torch.arange(e + 1, device=x2.device), side="left")
+    pos = torch.arange(t * k, device=x2.device) - first[se]
+    keep = (se < e) & (pos < c)
+    kept = torch.argsort((~keep).to(torch.uint8), stable=True)   # the kept pairs first
+    # one wait for the device: the held pairs (a prefix of the sorted ones)
+    # and the kept among them
+    with trace.host_sync("moe.dispatch"):
+        n_held, n_kept = torch.stack([first[e], keep.sum()]).tolist()
+    _tally(t * k, n_held, n_held - n_kept)
+    kept = kept[:n_kept]
+    st, sg, slot = st[kept], sg[kept], (se * c + pos)[kept]
+
+    buf = x2.new_zeros((e * c, d))
+    buf[slot] = x2[st]
+    buf = shard_activation(buf.reshape(e, c, d), ("experts", None, None))
+
+    # grouped expert FFN
+    h = F.silu(torch.bmm(buf, p["we_gate"].to(x2.dtype)))
+    h = h * torch.bmm(buf, p["we_up"].to(x2.dtype))
+    y = torch.bmm(h, p["we_down"].to(x2.dtype)).reshape(e * c, d)
+    # combine back, weighted by the (renormalised) gates
+    return x2.new_zeros((t, d)).index_add_(0, st, y[slot] * sg.to(x2.dtype)[:, None])
+
+
+def _tally(routed: int, held: int, dropped: int) -> None:
+    trace.tally("moe.pairs", routed)
+    trace.tally("moe.pairs_held", held)
+    trace.tally("moe.pairs_dropped", dropped)
+
+
 def aux_load_balance_loss(cfg: ModelConfig, router_logits: torch.Tensor) -> torch.Tensor:
     """Switch-style load-balance aux loss (training)."""
     m = cfg.moe
     probs = torch.softmax(router_logits.float(), dim=-1)
     _, idx = _topk(probs, m.top_k)
-    e = m.num_experts
+    e = m.router_width
     lead = tuple(range(idx.ndim - 1))
     frac_tokens = F.one_hot(idx, e).float().sum(dim=-2).mean(dim=lead)
     frac_probs = probs.mean(dim=tuple(range(probs.ndim - 1)))

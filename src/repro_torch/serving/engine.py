@@ -141,9 +141,14 @@ class Engine:
         ``decode_host_ms``), the batch's host syncs by name (``syncs``, see
         ``core.trace``), whether every logit was finite, and the decode
         steps replayed from ``graphs`` and the steps it captured for this
-        call (``graph_steps``, ``graph_captures``)."""
+        call (``graph_steps``, ``graph_captures``). A model with MoE layers
+        adds ``moe_pairs``: by phase (``prefill``, ``decode``), the (token,
+        expert) pairs routed, routed to the experts held, and dropped of
+        those at capacity (``routed``, ``held``, ``dropped``, from
+        ``trace.tallies``)."""
         clock = _Clock(self.device)
         counts0, wait0 = dict(trace.counts), trace.wait_s()
+        tallies0 = dict(trace.tallies)
         graphs = self.graphs if sample_gen is None else None
         replays0, captures0 = (graphs.replays, graphs.store.captures) if graphs else (0, 0)
         host0 = time.perf_counter()
@@ -155,6 +160,7 @@ class Engine:
             logits, _, lengths = self.prefill(tokens, embeds, out=step.caches)
         clock.mark()
         host1, wait1 = time.perf_counter(), trace.wait_s()
+        tallies1 = dict(trace.tallies)
         if graphs is None:
             finite = torch.isfinite(logits).all()
             out = []
@@ -195,7 +201,17 @@ class Engine:
                            "graph_steps": graphs.replays - replays0 if graphs else 0,
                            "graph_captures": (graphs.store.captures - captures0
                                               if graphs else 0)}
+        if self.cfg.moe is not None:
+            self.last_stats["moe_pairs"] = {"prefill": _pairs(tallies1, tallies0),
+                                            "decode": _pairs(trace.tallies, tallies1)}
         return toks
+
+
+def _pairs(upto: dict, start: dict) -> dict:
+    """The MoE pairs ``routed``, ``held`` and ``dropped`` that ``trace.tally``
+    counted between two snapshots of ``trace.tallies``."""
+    names = {"routed": "moe.pairs", "held": "moe.pairs_held", "dropped": "moe.pairs_dropped"}
+    return {k: upto.get(n, 0) - start.get(n, 0) for k, n in names.items()}
 
 
 class _Clock:

@@ -1,5 +1,8 @@
 """Helpers shared by the port's parity tests: inputs and weights are made
-with numpy from a seed and handed to both frameworks."""
+with numpy from a seed and handed to both frameworks, and the port's
+configurations in the form the JAX package runs them."""
+import dataclasses
+
 import numpy as np
 
 import jax.numpy as jnp
@@ -56,3 +59,34 @@ def tree_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
     return np.asarray(tree)
+
+
+# the port's fields that the JAX package lacks, at the values that reproduce it
+PORT_ONLY = {"rope_scaling": None}
+PORT_ONLY_MOE = {"scoring": "softmax", "n_group": 1, "topk_group": 1, "num_routed": 0}
+
+
+def jax_form(cfg):
+    """``cfg`` as the JAX package runs it: a softmax top-k router over the
+    experts held and plain RoPE. The port's deepseek-v3 takes the published
+    sigmoid group-limited router and YaRN, which the JAX package lacks; every
+    other configuration comes back as it is."""
+    if cfg.moe is not None and (cfg.moe.scoring, cfg.moe.n_group) != ("softmax", 1):
+        cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, scoring="softmax", n_group=1,
+                                                 topk_group=1))
+    if cfg.rope_scaling is not None:
+        cfg = cfg.scaled(rope_scaling=None)
+    return cfg
+
+
+def jax_asdict(cfg) -> dict:
+    """``dataclasses.asdict`` of ``jax_form(cfg)`` without the fields that only
+    the port has (each must hold the value that reproduces the JAX package),
+    to compare with the JAX package's configuration."""
+    d = dataclasses.asdict(jax_form(cfg))
+    for k, v in PORT_ONLY.items():
+        assert d.pop(k) == v, k
+    if d["moe"] is not None:
+        for k, v in PORT_ONLY_MOE.items():
+            assert d["moe"].pop(k) == v, k
+    return d

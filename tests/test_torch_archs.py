@@ -33,7 +33,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.train.optimizer import _leaves
 
-from _torch_util import numpy_params, tree_to_jax
+from _torch_util import jax_asdict, numpy_params, tree_to_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIX = ("gemma2-2b", "gemma2-27b", "qwen3-32b", "mixtral-8x7b",
@@ -84,7 +84,7 @@ def test_ladder_cuts_the_widened_smoke_config_as_the_jax_package_does(arch):
     from level 0 in d_ff, depth or top-k."""
     for level in range(6):
         cfg, jcfg = _level_configs(arch, level)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg), level
+        assert jax_asdict(cfg) == dataclasses.asdict(jcfg), level
     lo, hi = _level_configs(arch, 0)[0], _level_configs(arch, 5)[0]
 
     def knobs(c):

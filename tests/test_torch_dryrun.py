@@ -22,6 +22,7 @@ from repro.models import transformer as jtfm
 from repro.roofline import analysis as jroof
 from repro_torch.configs import (ARCH_NAMES, SHAPES, cells, get_config, get_shape,
                                  get_smoke_config)
+from _torch_util import jax_form
 from repro_torch.launch import dryrun as dr
 from repro_torch.launch import inputs as pinputs
 from repro_torch.models import model as model_lib
@@ -56,7 +57,7 @@ def jax_shapes_dtypes(jax_tree):
 def test_param_logical_axes_match_jax(arch):
     want = jax.tree_util.tree_leaves(jtfm.param_logical_axes(jax_get_config(arch)),
                                      is_leaf=lambda x: isinstance(x, tuple))
-    assert leaves(model_lib.param_logical_axes(get_config(arch))) == want
+    assert leaves(model_lib.param_logical_axes(jax_form(get_config(arch)))) == want
 
 
 @pytest.mark.parametrize("size", list(GET))
@@ -67,7 +68,7 @@ def test_abstract_params_match_eval_shape(arch, size):
     want = jax_shapes_dtypes(jax.eval_shape(
         functools.partial(jtfm.init_params, jcfg), jax.random.PRNGKey(0)))
     assert want == jax_shapes_dtypes(jtfm.abstract_params(jcfg))
-    assert shapes_dtypes(model_lib.abstract_params(pget(arch))) == want
+    assert shapes_dtypes(model_lib.abstract_params(jax_form(pget(arch)))) == want
 
 
 @pytest.mark.parametrize("size", list(GET))

@@ -18,6 +18,7 @@ import repro.sched as jsched
 from repro.core.requests import InferenceRequest as JaxRequest
 from repro.core.variants import VariantPool as JaxVariantPool
 from repro.roofline.analysis import HBM_BW, PEAK_FLOPS
+from _torch_util import jax_asdict
 from repro_torch import configs
 from repro_torch.core import profiling as prof
 from repro_torch.core.cluster import DEFAULT_NODES
@@ -38,7 +39,7 @@ def test_configs_equal(arch, kind):
     get, jget = ((configs.get_config, jconfigs.get_config) if kind == "full"
                  else (configs.get_smoke_config, jconfigs.get_smoke_config))
     a, b = get(arch), jget(arch)
-    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert jax_asdict(a) == dataclasses.asdict(b)
     assert a.param_count() == b.param_count()
     assert a.param_count(active_only=True) == b.param_count(active_only=True)
 
@@ -58,7 +59,7 @@ def test_variant_ladder_equal(arch):
     b = JaxVariantPool(jconfigs.get_config(arch))
     assert len(a) == len(b) == 6
     for va, vb in zip(a.variants, b.variants):
-        assert dataclasses.asdict(va.config) == dataclasses.asdict(vb.config)
+        assert jax_asdict(va.config) == dataclasses.asdict(vb.config)
         assert (va.level, va.alpha, va.accuracy, va.rel_active_params) == (
             vb.level, vb.alpha, vb.accuracy, vb.rel_active_params)
 

@@ -23,7 +23,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import Engine, EngineConfig, pad_caches
 
-from _torch_util import as_np, numpy_params, to_jax, to_torch, tree_to_jax
+from _torch_util import as_np, jax_form, numpy_params, to_jax, to_torch, tree_to_jax
 
 ARCH = "deepseek-v3-671b"
 TOL = {False: 5e-5, True: 2e-2}
@@ -31,7 +31,8 @@ TOL = {False: 5e-5, True: 2e-2}
 
 def _cfgs(bf16):
     dt = "bfloat16" if bf16 else "float32"
-    return get_smoke_config(ARCH).scaled(dtype=dt), jax_smoke_config(ARCH).scaled(dtype=dt)
+    return (jax_form(get_smoke_config(ARCH)).scaled(dtype=dt),
+            jax_smoke_config(ARCH).scaled(dtype=dt))
 
 
 def _mla_params(cfg, seed):

@@ -12,15 +12,22 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models.attention import gqa_scores_softmax as jax_gqa_scores_softmax
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_smoke_config as _port_smoke_config
 from repro_torch.models import forward, init_params
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import gqa_scores_softmax
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import ParamSpec
 
-from _torch_util import (as_np, numpy_params, to_jax, to_torch, tree_to_jax,
+from _torch_util import (as_np, jax_form, numpy_params, to_jax, to_torch, tree_to_jax,
                          tree_to_numpy)
+
+
+def get_smoke_config(arch):
+    """The port's smoke configuration in the form the JAX package runs it
+    (``jax_form``: deepseek-v3's router and RoPE as the JAX package's)."""
+    return jax_form(_port_smoke_config(arch))
+
 
 ARCHS = ["phi4-mini-3.8b", "qwen3-32b", "gemma2-2b", "llava-next-mistral-7b",
          "musicgen-medium", "rwkv6-1.6b", "jamba-1.5-large-398b", "mixtral-8x7b",

@@ -14,7 +14,7 @@ from repro.models import moe as jmoe
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import moe
 
-from _torch_util import as_np
+from _torch_util import as_np, jax_form
 
 TOL = 5e-5
 MOE_ARCHS = ["jamba-1.5-large-398b", "mixtral-8x7b", "deepseek-v3-671b"]
@@ -72,7 +72,7 @@ def _moe_params(cfg, seed):
 
 
 def _both_apply(arch, params, x):
-    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    cfg = jax_form(get_smoke_config(arch)).scaled(dtype="float32")
     got = moe.moe_apply(cfg, {k: torch.from_numpy(v) for k, v in params.items()},
                         torch.from_numpy(x))
     want = jmoe.moe_apply(jax_smoke_config(arch).scaled(dtype="float32"),
@@ -84,7 +84,7 @@ def _both_apply(arch, params, x):
 def test_moe_apply_matches_jax(arch):
     """Sort-based dispatch on random routing (jamba and mixtral smoke;
     deepseek's MoE layer brings a shared expert and ``router_scale``)."""
-    cfg = get_smoke_config(arch)
+    cfg = jax_form(get_smoke_config(arch))
     params = _moe_params(cfg, 2)
     x = np.random.default_rng(3).standard_normal((2, 24, cfg.d_model)).astype(np.float32)
     got, want = _both_apply(arch, params, x)
@@ -143,8 +143,8 @@ def test_moe_apply_at_deepseek_routing_matches_jax(b, s):
     full = get_config("deepseek-v3-671b").moe
     assert (full.num_experts, full.top_k, full.num_shared_experts) == (256, 8, 1)
     narrow = dataclasses.replace(full, d_ff_expert=16)
-    cfg = get_smoke_config("deepseek-v3-671b").scaled(d_model=32, moe=narrow,
-                                                      dtype="float32")
+    cfg = jax_form(get_smoke_config("deepseek-v3-671b").scaled(d_model=32, moe=narrow,
+                                                               dtype="float32"))
     jcfg = jax_smoke_config("deepseek-v3-671b").scaled(
         d_model=32, moe=dataclasses.replace(jax_smoke_config("deepseek-v3-671b").moe,
                                             num_experts=256, top_k=8, d_ff_expert=16),

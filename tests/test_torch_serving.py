@@ -14,7 +14,7 @@ from repro.models.attention import KVCache as JaxKVCache
 from repro.serving.engine import Engine as JaxEngine
 from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import _pad_kv as jax_pad_kv
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_smoke_config as _port_smoke_config
 from repro_torch.models import forward, init_params
 from repro_torch.models import model as model_lib
 from repro_torch.models import transformer as tfm
@@ -22,7 +22,14 @@ from repro_torch.models.attention import KVCache, layer_window, place_kv
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import BatchScheduler, Engine, EngineConfig
 
-from _torch_util import as_np, numpy_params, tree_to_jax
+from _torch_util import as_np, jax_form, numpy_params, tree_to_jax
+
+
+def get_smoke_config(arch):
+    """The port's smoke configuration in the form the JAX package runs it
+    (``jax_form``: deepseek-v3's router and RoPE as the JAX package's)."""
+    return jax_form(_port_smoke_config(arch))
+
 
 ARCHS = ["phi4-mini-3.8b", "qwen3-32b", "gemma2-2b", "llava-next-mistral-7b",
          "musicgen-medium", "rwkv6-1.6b", "jamba-1.5-large-398b", "mixtral-8x7b"]

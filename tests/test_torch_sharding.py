@@ -15,6 +15,7 @@ from repro.configs import get_config as jax_get_config
 from repro.distributed import sharding as jshd
 from repro.launch.mesh import make_abstract_mesh as jax_abstract_mesh
 from repro.models import transformer as jtfm
+from _torch_util import jax_form
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.distributed import ctx
 from repro_torch.distributed import sharding as shd
@@ -53,7 +54,7 @@ def test_param_specs_match_jax(arch, mode, mesh):
     jrules, prules = rules_pair(mesh, mode)
     want = [tuple(s.spec) for s in
             jax.tree_util.tree_leaves(jshd.param_shardings(jrules, jax_get_config(arch)))]
-    got = [s.spec for s in leaves(shd.param_shardings(prules, get_config(arch)))]
+    got = [s.spec for s in leaves(shd.param_shardings(prules, jax_form(get_config(arch))))]
     assert got == want
 
 
@@ -88,7 +89,7 @@ def test_per_device_bytes_follow_the_jax_specs(mesh):
         return total
 
     for arch in ARCH_NAMES:
-        jcfg, cfg = jax_get_config(arch), get_config(arch)
+        jcfg, cfg = jax_get_config(arch), jax_form(get_config(arch))
         want = jax_bytes(jshd.param_shardings(jrules, jcfg), jtfm.abstract_params(jcfg), 2)
         got = shd.per_device_bytes(prules, tfm.abstract_params(cfg, torch.bfloat16),
                                    tfm.param_logical_axes(cfg))

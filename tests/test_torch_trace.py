@@ -178,3 +178,61 @@ def test_every_range_of_the_port_goes_through_span():
     users = sorted(str(p.relative_to(SRC)) for p in SRC.rglob("*.py")
                    if "record_function" in p.read_text())
     assert users == ["core/trace.py"]
+
+
+# ----------------------------------------------------------------------
+# deepseek-v3: MLA and the published router, whole and as an EP share
+def _deepseek_engine(share: bool):
+    import dataclasses
+    cfg = get_smoke_config("deepseek-v3-671b").scaled(dtype="float32")
+    if share:       # 4 of 16 routed experts held here
+        cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, num_experts=4, num_routed=16,
+                                                 n_group=4, topk_group=2))
+    eng = Engine(cfg, init_params(cfg, 3, device="cpu"),
+                 EngineConfig(max_len=PROMPT + STEPS + 1), device="cpu")
+    toks = np.random.default_rng(4).integers(1, cfg.vocab_size, size=(2, PROMPT))
+    return cfg, eng, toks
+
+
+@pytest.mark.parametrize("share", [False, True], ids=["whole", "ep-share"])
+def test_profiler_sees_the_mla_and_route_ranges(share):
+    cfg, eng, toks = _deepseek_engine(share)
+    moe_layers = cfg.num_layers - cfg.num_dense_layers
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        eng.generate(toks, num_steps=STEPS)
+    got = _range_counts(prof)
+    calls = 1 + STEPS
+    want = {"attn.mla": cfg.num_layers * calls, "moe.route": moe_layers * calls,
+            "moe.dispatch": moe_layers * calls}
+    assert {k: got.get(k, 0) for k in want} == want
+
+
+@pytest.mark.parametrize("share", [False, True], ids=["whole", "ep-share"])
+def test_moe_pairs_by_phase_and_no_added_host_sync(share):
+    """The pairs routed, held and dropped by phase, counted from what the
+    dispatch's one sync brings back: 3 syncs a batch plus one a MoE layer
+    of each call, as before."""
+    cfg, eng, toks = _deepseek_engine(share)
+    moe_layers = cfg.num_layers - cfg.num_dense_layers
+    k = cfg.moe.top_k
+    eng.generate(toks, num_steps=STEPS)
+    st = eng.last_stats
+    assert st["syncs"] == {"engine.upload": 1, "engine.collect": 2,
+                           "moe.dispatch": moe_layers * (1 + STEPS)}
+    pre, dec = st["moe_pairs"]["prefill"], st["moe_pairs"]["decode"]
+    assert pre["routed"] == 2 * PROMPT * k * moe_layers
+    assert dec["routed"] == 2 * k * moe_layers * STEPS
+    for ph in (pre, dec):
+        assert 0 <= ph["dropped"] <= ph["held"] <= ph["routed"]
+        assert (ph["held"] == ph["routed"]) == (not share)
+    assert dec["dropped"] == 0                        # 2 x 2 pairs, capacity 8
+    # a second batch counts its own pairs only
+    eng.generate(toks[:1], num_steps=1)
+    assert eng.last_stats["moe_pairs"]["prefill"]["routed"] == PROMPT * k * moe_layers
+    assert eng.last_stats["moe_pairs"]["decode"]["routed"] == k * moe_layers
+
+
+def test_a_dense_model_reports_no_moe_pairs():
+    _, eng, toks = _engine("phi4-mini-3.8b", None, 0)
+    eng.generate(toks, num_steps=1)
+    assert "moe_pairs" not in eng.last_stats

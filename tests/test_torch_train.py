@@ -24,7 +24,7 @@ from repro.models.model import loss_fn as jax_loss_fn
 from repro.train import optimizer as jopt
 from repro.train import train_step as jts
 from repro_torch.checkpoint import checkpoint as ckpt
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_smoke_config as _port_smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, to_device
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import flash_attention_bwd as fab_k
@@ -36,7 +36,14 @@ from repro_torch.models.convert import params_from_jax, train_state_from_jax
 from repro_torch.train import optimizer as opt
 from repro_torch.train import train_step as ts
 
-from _torch_util import as_np, numpy_params, to_jax, to_torch, tree_to_jax
+from _torch_util import as_np, jax_form, numpy_params, to_jax, to_torch, tree_to_jax
+
+
+def get_smoke_config(arch):
+    """The port's smoke configuration in the form the JAX package runs it
+    (``jax_form``: deepseek-v3's router and RoPE as the JAX package's)."""
+    return jax_form(_port_smoke_config(arch))
+
 
 TOL = {False: 5e-5, True: 2e-2}
 MODEL_TOL = 5e-4
