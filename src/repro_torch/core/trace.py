@@ -14,10 +14,6 @@ module state that only grows, like the kernels' ``launches`` counters; a
 caller reads what one piece of work added from a snapshot before it
 (``counts_since``, ``wait_s``).
 
-``tally(name, n)`` adds ``n`` to ``tallies[name]``: counts of work the
-program already knows on the host (the MoE layers' routed, held and dropped
-(token, expert) pairs), read from snapshots like ``counts``.
-
 This module imports no torch: the host-only control plane opens spans too,
 and a profiler can only be recording once torch is loaded.
 """
@@ -32,7 +28,6 @@ NULL = contextlib.nullcontext()
 
 counts: Dict[str, int] = {}       # name -> host syncs counted
 waits_s: Dict[str, float] = {}    # name -> host seconds spent in them
-tallies: Dict[str, int] = {}      # name -> items counted
 
 
 def span(name: str):
@@ -71,8 +66,3 @@ def wait_s() -> float:
 def counts_since(before: Dict[str, int]) -> Dict[str, int]:
     """The syncs counted since ``before`` (a copy of ``counts``), by name."""
     return {k: n - before.get(k, 0) for k, n in counts.items() if n != before.get(k, 0)}
-
-
-def tally(name: str, n: int) -> None:
-    """Adds ``n`` (a host integer: counting costs no sync) to ``tallies[name]``."""
-    tallies[name] = tallies.get(name, 0) + n

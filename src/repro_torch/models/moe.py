@@ -19,10 +19,19 @@ deployment does without its exchange; the shared expert is computed as
 always, and the absent experts' part is left out. One device:
 ``shard_activation`` places nothing.
 
-Counts. Each call adds to ``trace.tallies`` the (token, expert) pairs routed
-(``moe.pairs``), those routed to experts held here (``moe.pairs_held``) and
-those of them dropped at capacity (``moe.pairs_dropped``), from numbers the
-dispatch's one host sync already brings back.
+No host sync. Every tensor of the dispatch has a size fixed by the tokens,
+the experts held, top-k and the capacity, so the host never waits for the
+device in it, and a decode step with MoE layers can be captured in a CUDA
+graph (``serving/decode_graph.py``). The kept pairs' token indices and gates
+are scattered into their slots, and the pairs dropped at capacity or routed
+to an absent expert into one spare entry that nothing reads; an empty slot
+gathers a zero row and weighs its expert's output (0) by a gate of 0.
+
+Counts. Each call adds the (token, expert) pairs routed, those routed to
+experts held here and those of them dropped at capacity to its device's
+running sums (:func:`pair_counts`), in place on the device, so that a
+replayed graph counts too; ``Engine.generate`` reads them at the syncs it
+makes anyway.
 """
 from __future__ import annotations
 
@@ -129,7 +138,8 @@ def moe_apply(cfg: ModelConfig, p: ParamTree, x: torch.Tensor) -> torch.Tensor:
             router_logits = x2 @ p["w_router"].to(x.dtype)
             gates, idx = route_topk(cfg, router_logits)             # (T,k)
 
-    out = _dispatch(p, x2, gates, idx, e, k, m.router_width)
+    with trace.span("moe.dispatch"):
+        out = _dispatch(p, x2, gates, idx, e, k, m.router_width)
 
     if m.num_shared_experts:
         hs = F.silu(x2 @ p["ws_gate"].to(x.dtype)) * (x2 @ p["ws_up"].to(x.dtype))
@@ -141,41 +151,57 @@ def _dispatch(p, x2, gates, idx, e: int, k: int, width: int) -> torch.Tensor:
     """The pairs routed to the ``e`` experts held here (``0 .. e - 1`` of the
     router's ``width``) go through them, up to each expert's capacity; the
     rest are left out. With every expert held (``width == e``) this is the
-    whole layer."""
+    whole layer. The work on rows of ``d`` is bounded by the ``e * c``
+    slots, whatever share of the pairs is dropped or absent."""
     t, d = x2.shape
     c = capacity(t, width, k)
+    dev = x2.device
     flat_e = idx.reshape(t * k).clamp(max=e)          # every absent expert sorts last
-    flat_t = torch.arange(t, device=x2.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
-    se, st, sg = flat_e[order], flat_t[order], gates.reshape(t * k)[order]
-    first = torch.searchsorted(se, torch.arange(e + 1, device=x2.device), side="left")
-    pos = torch.arange(t * k, device=x2.device) - first[se]
+    se, st, sg = flat_e[order], order // k, gates.reshape(t * k)[order]
+    first = torch.searchsorted(se, torch.arange(e + 1, device=dev), side="left")
+    pos = torch.arange(t * k, device=dev) - first[se]
     keep = (se < e) & (pos < c)
-    kept = torch.argsort((~keep).to(torch.uint8), stable=True)   # the kept pairs first
-    # one wait for the device: the held pairs (a prefix of the sorted ones)
-    # and the kept among them
-    with trace.host_sync("moe.dispatch"):
-        n_held, n_kept = torch.stack([first[e], keep.sum()]).tolist()
-    _tally(t * k, n_held, n_held - n_kept)
-    kept = kept[:n_kept]
-    st, sg, slot = st[kept], sg[kept], (se * c + pos)[kept]
+    held = first[e]
+    pair_counts(dev).add_(torch.stack([torch.full_like(held, t * k), held, held - keep.sum()]))
+    # each kept pair into its slot, every other pair into the spare last entry;
+    # an empty slot takes token t (a zero row) and a gate of 0
+    slot = torch.where(keep, se * c + pos, e * c)
+    src = torch.full((e * c + 1,), t, dtype=torch.long, device=dev).scatter_(0, slot, st)[:-1]
+    w = sg.new_zeros(e * c + 1).scatter(0, slot, sg)[:-1]
 
-    buf = x2.new_zeros((e * c, d))
-    buf[slot] = x2[st]
+    buf = F.pad(x2, (0, 0, 0, 1))[src]
     buf = shard_activation(buf.reshape(e, c, d), ("experts", None, None))
 
     # grouped expert FFN
     h = F.silu(torch.bmm(buf, p["we_gate"].to(x2.dtype)))
     h = h * torch.bmm(buf, p["we_up"].to(x2.dtype))
     y = torch.bmm(h, p["we_down"].to(x2.dtype)).reshape(e * c, d)
-    # combine back, weighted by the (renormalised) gates
-    return x2.new_zeros((t, d)).index_add_(0, st, y[slot] * sg.to(x2.dtype)[:, None])
+    # combine back, weighted by the (renormalised) gates; empty slots into row t
+    out = x2.new_zeros((t + 1, d)).index_add_(0, src, y * w.to(x2.dtype)[:, None])
+    return out[:t]
 
 
-def _tally(routed: int, held: int, dropped: int) -> None:
-    trace.tally("moe.pairs", routed)
-    trace.tally("moe.pairs_held", held)
-    trace.tally("moe.pairs_dropped", dropped)
+# the running sums of each device: (token, expert) pairs routed, routed to
+# the experts held, dropped of those at capacity
+_PAIRS: Dict[torch.device, torch.Tensor] = {}
+
+
+def pair_counts(device) -> torch.Tensor:
+    """The (3,) int64 running sums on ``device`` of the pairs routed, held
+    and dropped by every MoE call there, which each call adds to in place.
+    A reader takes a snapshot with ``clone()`` (no sync) and brings the
+    numbers back at a sync it makes anyway. Made at the first call, which
+    comes before any capture: a prefill runs before its decode step is
+    captured."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counts = _PAIRS.get(device)
+    if counts is None:
+        with torch.inference_mode(False):     # a tensor training may add to too
+            counts = _PAIRS[device] = torch.zeros(3, dtype=torch.long, device=device)
+    return counts
 
 
 def aux_load_balance_loss(cfg: ModelConfig, router_logits: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,15 @@
 """Greedy decode steps replayed from CUDA graphs.
 
 A model whose decode step never waits for the host (:func:`graph_route`:
-every sublayer a GQA mixer with a dense MLP, on the card) has its whole
-greedy step captured once for each batch size and replayed at every step:
-the same kernels in the same order at the same precision, K2 included, with
-the host's launch work gone. A MoE layer syncs with the host in its
-dispatch, so MoE, MLA, Mamba and RWKV models, the CPU and sampled generation
-keep the engine's eager loop.
+every sublayer a GQA mixer with a dense or MoE MLP, on the card) has its
+whole greedy step captured once for each batch size and replayed at every
+step: the same kernels in the same order at the same precision, K2 included,
+with the host's launch work gone. The MoE dispatch has no host sync, and
+adds its pair counts to a tensor on the device (``moe.pair_counts``), so a
+replay counts them too. MLA keeps its latent caches at no fixed address
+(``engine.pad_caches``), and Mamba's and RWKV's states are not yet written
+in place: those models, the CPU and sampled generation keep the engine's
+eager loop.
 
 Fixed addresses. A :class:`Step` (one batch size of one engine) owns the
 token, lengths and finite-flag buffers; the step reads the token, the lengths
@@ -73,9 +76,10 @@ _CALL_COUNTERS: List[collections.Counter] = []
 def graph_route(cfg: ModelConfig, device: torch.device) -> bool:
     """Whether greedy decode steps of ``cfg`` on ``device`` replay from CUDA
     graphs: on the card, and only where every sublayer is a GQA mixer with a
-    dense MLP (no host sync in the step)."""
+    dense or MoE MLP (no host sync in the step, every cache at a fixed
+    address). MLA, Mamba and RWKV take the eager loop."""
     return device.type == "cuda" and all(
-        sl.mixer == "gqa" and sl.mlp == "dense"
+        sl.mixer == "gqa" and sl.mlp in ("dense", "moe")
         for g in tfm.layer_plan(cfg) for sl in g.pattern)
 
 

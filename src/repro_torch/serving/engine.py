@@ -34,6 +34,7 @@ from repro_torch.core import trace
 from repro_torch.core.batching import BatchFormation
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import resolve_device
 from repro_torch.serving import decode_graph
@@ -144,11 +145,12 @@ class Engine:
         call (``graph_steps``, ``graph_captures``). A model with MoE layers
         adds ``moe_pairs``: by phase (``prefill``, ``decode``), the (token,
         expert) pairs routed, routed to the experts held, and dropped of
-        those at capacity (``routed``, ``held``, ``dropped``, from
-        ``trace.tallies``)."""
+        those at capacity (``routed``, ``held``, ``dropped``), from device
+        copies of ``moe.pair_counts`` brought back with the finite flag."""
         clock = _Clock(self.device)
         counts0, wait0 = dict(trace.counts), trace.wait_s()
-        tallies0 = dict(trace.tallies)
+        pairs = moe_lib.pair_counts(self.device) if self.cfg.moe is not None else None
+        snaps = [pairs.clone()] if pairs is not None else []
         graphs = self.graphs if sample_gen is None else None
         replays0, captures0 = (graphs.replays, graphs.store.captures) if graphs else (0, 0)
         host0 = time.perf_counter()
@@ -160,7 +162,8 @@ class Engine:
             logits, _, lengths = self.prefill(tokens, embeds, out=step.caches)
         clock.mark()
         host1, wait1 = time.perf_counter(), trace.wait_s()
-        tallies1 = dict(trace.tallies)
+        if pairs is not None:
+            snaps.append(pairs.clone())
         if graphs is None:
             finite = torch.isfinite(logits).all()
             out = []
@@ -187,10 +190,13 @@ class Engine:
                     graphs.replay(step)
                     clock.mark()
         host2, wait2 = time.perf_counter(), trace.wait_s()
+        if pairs is not None:
+            snaps.append(pairs)
         with trace.host_sync("engine.collect"):
             toks = out.cpu().numpy().astype(np.int32)
         with trace.host_sync("engine.collect"):
-            finite = bool(finite.item())
+            finite, *counts = torch.cat([finite.reshape(1).long(), *snaps]).tolist()
+        finite = bool(finite)
         prefill_ms, *step_ms = clock.intervals_ms()
         self.last_stats = {"prefill_ms": prefill_ms,
                            "decode_ms_per_step": sum(step_ms) / max(num_steps, 1),
@@ -201,17 +207,16 @@ class Engine:
                            "graph_steps": graphs.replays - replays0 if graphs else 0,
                            "graph_captures": (graphs.store.captures - captures0
                                               if graphs else 0)}
-        if self.cfg.moe is not None:
-            self.last_stats["moe_pairs"] = {"prefill": _pairs(tallies1, tallies0),
-                                            "decode": _pairs(trace.tallies, tallies1)}
+        if pairs is not None:
+            self.last_stats["moe_pairs"] = {"prefill": _pairs(counts[0:3], counts[3:6]),
+                                            "decode": _pairs(counts[3:6], counts[6:9])}
         return toks
 
 
-def _pairs(upto: dict, start: dict) -> dict:
-    """The MoE pairs ``routed``, ``held`` and ``dropped`` that ``trace.tally``
-    counted between two snapshots of ``trace.tallies``."""
-    names = {"routed": "moe.pairs", "held": "moe.pairs_held", "dropped": "moe.pairs_dropped"}
-    return {k: upto.get(n, 0) - start.get(n, 0) for k, n in names.items()}
+def _pairs(start: List[int], upto: List[int]) -> dict:
+    """The MoE pairs ``routed``, ``held`` and ``dropped`` counted between two
+    snapshots of ``moe.pair_counts``."""
+    return {k: b - a for k, a, b in zip(("routed", "held", "dropped"), start, upto)}
 
 
 class _Clock:

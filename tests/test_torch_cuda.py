@@ -680,16 +680,20 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-# dense bf16 configurations on the decode graph's route: small ones, phi4's
-# GQA at D 64 and gemma2's local ring (window 16, passed by the prompt) at D
-# 128; and phi4 at every published width, 2 layers deep (cuBLAS picks its
-# GEMMs by the widths and the batch, so the served steps' GEMMs run here)
+# bf16 configurations on the decode graph's route: small ones, phi4's GQA at
+# D 64, gemma2's local ring (window 16, passed by the prompt) at D 128 and a
+# mixtral-shaped GQA + MoE (8 experts, top-2, window 32); and phi4 and
+# mixtral at every published width, 2 layers deep (cuBLAS picks its GEMMs by
+# the widths and the batch, so the served steps' GEMMs run here)
 GRAPH_CASES = {
     "phi4-mini-3.8b": dict(num_layers=2, d_model=256, num_heads=6, num_kv_heads=2,
                            head_dim=64, d_ff=512, vocab_size=512),
     "gemma2-2b": dict(num_layers=4, d_model=256, num_heads=4, num_kv_heads=2,
                       head_dim=128, d_ff=512, vocab_size=512, sliding_window=16),
     "phi4-mini-3.8b-full": dict(num_layers=2),
+    "mixtral-8x7b": dict(num_layers=2, d_model=256, num_heads=8, num_kv_heads=2,
+                         head_dim=64, vocab_size=512, sliding_window=32),
+    "mixtral-8x7b-full": dict(num_layers=2),
 }
 
 
@@ -742,10 +746,15 @@ def test_decode_graph_replays_equal_the_eager_loop(device, case):
         out = graphed.generate(toks, steps)
         assert graphed.last_stats["graph_captures"] == 0           # warmed by the above
         assert graphed.last_stats["graph_steps"] == steps
+        assert sum(graphed.last_stats["syncs"].values()) == 3
         assert (fa_k.launches - k1, dec_k.launches - k2) == (cfg.num_layers,
                                                              cfg.num_layers * steps)
         assert (out == eager.generate(toks, steps)).all()
         assert eager.last_stats["graph_steps"] == 0
+        if cfg.moe is not None:     # the replays count their pairs as the eager loop
+            assert graphed.last_stats["moe_pairs"] == eager.last_stats["moe_pairs"]
+            assert graphed.last_stats["moe_pairs"]["decode"]["routed"] == (
+                n * cfg.moe.top_k * cfg.num_layers * steps)
     assert sorted(graphed.graphs.steps) == [1, 3, 8]
     del graphed, g, st, logits, caches, lengths, want, got, w, x
     torch.cuda.empty_cache()
@@ -770,3 +779,38 @@ def test_decode_graph_replays_equal_the_eager_loop(device, case):
     del again
     torch.cuda.empty_cache()
     assert torch.cuda.memory_allocated() == base
+
+
+@pytest.mark.parametrize("b,s", [(8, 1), (8, 96)], ids=["decode", "prefill"])
+def test_moe_apply_waits_for_no_host_sync(device, b, s):
+    """A mixtral-shaped MoE layer (8 experts, top-2, bf16) at a decode size
+    and at a prefill size with drops at capacity makes no call that
+    synchronises with the host, and counts on the device the pairs that its
+    own routing gives: all held, and those past an expert's capacity
+    dropped."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models import moe
+    m = dataclasses.replace(get_smoke_config("mixtral-8x7b").moe, num_experts=8)
+    cfg = get_smoke_config("mixtral-8x7b").scaled(d_model=256, moe=m)
+    p = init_params(cfg, 0, device="cpu")["layers"]["sub0"]["moe"]
+    p = {k: v[0].to(device, torch.bfloat16) for k, v in p.items()}
+    x = torch.randn(b, s, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    x[..., 0] += 4.0            # crowd the tokens onto a few experts
+    x = x.to(device, torch.bfloat16)
+    moe.moe_apply(cfg, p, x)      # loads cuBLAS and the sort outside the check
+    before = moe.pair_counts(device).clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe.moe_apply(cfg, p, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    routed, held, dropped = (moe.pair_counts(device) - before).tolist()
+    _, idx = moe.route_topk(cfg, x.reshape(b * s, -1) @ p["w_router"])
+    per_expert = torch.bincount(idx.flatten(), minlength=8).cpu()
+    c = moe.capacity(b * s, 8, 2)
+    assert routed == held == b * s * 2
+    assert dropped == int((per_expert - c).clamp_min(0).sum()) and (dropped > 0) == (s > 1)
+    assert out.shape == x.shape and torch.isfinite(out).all()

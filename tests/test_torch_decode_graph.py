@@ -1,9 +1,10 @@
 """The engine's fixed-buffer decode step (``serving/decode_graph.py``) on the
 CPU, where it runs without capture: tokens and fp32 logits bit for bit
-against the eager loop at scaled phi4-mini, qwen3 and gemma2-2b (a sliding
-window past its ring's wrap), batch sizes 1, 3 and 8 on one shared cache
+against the eager loop at scaled phi4-mini, qwen3, gemma2-2b (a sliding
+window past its ring's wrap) and mixtral (GQA + MoE, its pairs counted by
+phase as the eager loop counts them), batch sizes 1, 3 and 8 on one shared cache
 whose stale slots lie past the later batches' lengths, the rule that sends
-MoE, MLA, Mamba, RWKV, the CPU and sampled generation to the eager loop, the
+MLA, Mamba, RWKV, the CPU and sampled generation to the eager loop, the
 ``graph_steps`` / ``graph_captures`` stats (captures that another engine
 causes included), and that the store goes with the last engine. The replay itself is held on the card in ``test_torch_cuda.py``."""
 import gc
@@ -24,7 +25,9 @@ STEPS = 5
 # (batch size, prompt length) in turns: the cache grows at 3 and at 8, and
 # the later, shorter prompts leave the earlier batches' K/V in their slots
 BATCHES = [(3, 12), (8, 9), (1, 5), (3, 7)]
-DENSE = {"phi4-mini-3.8b": {}, "qwen3-32b": {}, "gemma2-2b": {"sliding_window": 8}}
+# the graph route's models: dense, and a GQA + MoE one (mixtral)
+ROUTE = {"phi4-mini-3.8b": {}, "qwen3-32b": {}, "gemma2-2b": {"sliding_window": 8},
+         "mixtral-8x7b": {}}
 
 
 def _engines(arch, max_len, use_kernels=False, seed=1, **scaled):
@@ -70,9 +73,9 @@ def _fixed_logits(eng, toks, steps):
 
 
 @pytest.mark.parametrize("use_kernels", [False, True], ids=["einsum", "kernels"])
-@pytest.mark.parametrize("arch", sorted(DENSE))
+@pytest.mark.parametrize("arch", sorted(ROUTE))
 def test_fixed_step_equals_the_eager_loop_bit_for_bit(arch, use_kernels):
-    cfg, eager, fixed = _engines(arch, 20, use_kernels, **DENSE[arch])
+    cfg, eager, fixed = _engines(arch, 20, use_kernels, **ROUTE[arch])
     for k, (n, plen) in enumerate(BATCHES):
         toks = _prompts(cfg, n, plen, k)
         want, got = _eager_logits(eager, toks, STEPS), _fixed_logits(fixed, toks, STEPS)
@@ -83,6 +86,10 @@ def test_fixed_step_equals_the_eager_loop_bit_for_bit(arch, use_kernels):
         assert fixed.last_stats["graph_steps"] == STEPS
         assert eager.last_stats["graph_steps"] == 0
         assert fixed.last_stats["finite"] is True
+        if cfg.moe is not None:     # the replays count their pairs, as the eager loop
+            pairs = fixed.last_stats["moe_pairs"]
+            assert pairs == eager.last_stats["moe_pairs"]
+            assert pairs["decode"]["routed"] == n * cfg.moe.top_k * cfg.num_layers * STEPS
 
 
 def test_batch_sizes_share_one_cache_sized_for_the_largest():
@@ -193,12 +200,12 @@ def test_the_store_goes_with_the_last_engine():
 
 
 ROUTED = ["phi4-mini-3.8b", "qwen3-32b", "gemma2-2b", "llava-next-mistral-7b",
-          "musicgen-medium"]
-EAGER = ["mixtral-8x7b", "deepseek-v3-671b", "jamba-1.5-large-398b", "rwkv6-1.6b"]
+          "musicgen-medium", "mixtral-8x7b"]
+EAGER = ["deepseek-v3-671b", "jamba-1.5-large-398b", "rwkv6-1.6b"]
 
 
 @pytest.mark.parametrize("arch", ROUTED + EAGER)
-def test_graph_route_engages_for_dense_gqa_on_the_card_only(arch):
+def test_graph_route_engages_for_gqa_with_dense_or_moe_mlps_on_the_card_only(arch):
     cfg = get_smoke_config(arch)
     assert decode_graph.graph_route(cfg, torch.device("cuda")) == (arch in ROUTED)
     assert not decode_graph.graph_route(cfg, CPU)

@@ -192,8 +192,10 @@ def test_yarn_rotates_positions_past_the_original_context():
 
 # ----------------------------------------------------------------------
 # Expert parallelism's share
-def _since(now: dict, before: dict) -> dict:
-    return {k: n - before.get(k, 0) for k, n in now.items() if n != before.get(k, 0)}
+def _since(before: torch.Tensor) -> list:
+    """The (routed, held, dropped) pairs counted on the CPU since ``before``
+    (a copy of ``moe.pair_counts``)."""
+    return (moe.pair_counts("cpu") - before).tolist()
 
 
 def _share_params(cfg, seed):
@@ -219,9 +221,9 @@ def test_expert_shares_add_up_to_the_whole_layer(tokens):
     p = _share_params(whole_cfg, 7)
     p["router_bias"] *= 10
     x = torch.randn(2, tokens, whole_cfg.d_model, generator=torch.Generator().manual_seed(8))
-    before = dict(trace.tallies)
+    before = moe.pair_counts("cpu").clone()
     whole = moe.moe_apply(whole_cfg, p, x)
-    dropped = _since(trace.tallies, before).get("moe.pairs_dropped", 0)
+    dropped = _since(before)[2]
     shared = (F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"])) @ p["ws_down"]
     share_cfg = whole_cfg.scaled(moe=dataclasses.replace(m, num_experts=4, num_routed=16))
     total = shared.clone()
@@ -243,16 +245,15 @@ def test_a_share_routes_over_every_expert_and_counts_its_pairs():
     p = _share_params(cfg, 9)
     assert p["w_router"].shape == (cfg.d_model, 16) and p["we_gate"].shape[0] == 4
     x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator().manual_seed(10))
-    before, syncs = dict(trace.tallies), dict(trace.counts)
+    before, syncs = moe.pair_counts("cpu").clone(), dict(trace.counts)
     moe.moe_apply(cfg, p, x)
-    got = _since(trace.tallies, before)
+    got = _since(before)
     _, idx = moe.route_grouped(cfg, x.reshape(80, -1) @ p["w_router"], p["router_bias"])
     held = int((idx < 4).sum())
     per_expert = torch.bincount(idx[idx < 4], minlength=4)
     dropped = int((per_expert - moe.capacity(80, 16, 4)).clamp_min(0).sum())
-    assert got == {"moe.pairs": 320, "moe.pairs_held": held,
-                   **({"moe.pairs_dropped": dropped} if dropped else {})}
-    assert trace.counts_since(syncs) == {"moe.dispatch": 1}
+    assert got == [320, held, dropped]
+    assert trace.counts_since(syncs) == {}          # counted on the device, no sync
 
 
 # ----------------------------------------------------------------------

@@ -3,11 +3,14 @@
 with tokens dropped past an expert's capacity, shared experts, and the
 load-balance aux loss, on the same numpy weights and inputs (fp32).
 Tolerance 5e-5, the reference's fp32 kernel tolerance: both sides compute the
-same products in the same dtype."""
+same products in the same dtype. Also the dispatch without a host sync
+against the one that had it (kept in this file as the oracle): outputs,
+device-side pair counts and gradients."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import moe as jmoe
@@ -157,3 +160,141 @@ def test_moe_apply_at_deepseek_routing_matches_jax(b, s):
                           jnp.asarray(x))
     assert moe.capacity(b * s, 256, 8) == (8 if s == 1 else 160)
     np.testing.assert_allclose(as_np(got), as_np(want), atol=TOL, rtol=TOL)
+
+
+# ----------------------------------------------------------------------
+# The dispatch without a host sync, against the dispatch that had one
+def _synced_dispatch(p, x2, gates, idx, e, k, width):
+    """The dispatch as it was before it lost its host sync: the kept pairs
+    counted on the host and gathered by a slice of that length. Returns the
+    output and the (routed, held, dropped) pairs."""
+    t, d = x2.shape
+    c = moe.capacity(t, width, k)
+    flat_e = idx.reshape(t * k).clamp(max=e)
+    flat_t = torch.arange(t).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], gates.reshape(t * k)[order]
+    first = torch.searchsorted(se, torch.arange(e + 1), side="left")
+    pos = torch.arange(t * k) - first[se]
+    keep = (se < e) & (pos < c)
+    kept = torch.argsort((~keep).to(torch.uint8), stable=True)
+    n_held, n_kept = torch.stack([first[e], keep.sum()]).tolist()
+    kept = kept[:n_kept]
+    st, sg, slot = st[kept], sg[kept], (se * c + pos)[kept]
+    buf = x2.new_zeros((e * c, d))
+    buf[slot] = x2[st]
+    buf = buf.reshape(e, c, d)
+    h = F.silu(torch.bmm(buf, p["we_gate"].to(x2.dtype)))
+    h = h * torch.bmm(buf, p["we_up"].to(x2.dtype))
+    y = torch.bmm(h, p["we_down"].to(x2.dtype)).reshape(e * c, d)
+    out = x2.new_zeros((t, d)).index_add_(0, st, y[slot] * sg.to(x2.dtype)[:, None])
+    return out, [t * k, n_held, n_held - n_kept]
+
+
+D, F_EXP = 16, 24
+
+
+def _experts(e, seed, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    return {"we_gate": torch.randn(e, D, F_EXP, generator=g).to(dtype) / 4,
+            "we_up": torch.randn(e, D, F_EXP, generator=g).to(dtype) / 4,
+            "we_down": torch.randn(e, F_EXP, D, generator=g).to(dtype) / 5}
+
+
+def _softmax_routing(t, width, seed, skew=0.0, k=2):
+    """Top-k softmax routing over ``width`` experts of random logits; ``skew``
+    added to experts 0 and 1 sends most pairs to them (past capacity)."""
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(t, width, generator=g)
+    logits[:, :2] += skew
+    vals, idx = moe._topk(torch.softmax(logits, -1), k)
+    return vals / vals.sum(-1, keepdim=True), idx
+
+
+def _both(p, x2, gates, idx, e, k, width):
+    before = moe.pair_counts("cpu").clone()
+    got = moe._dispatch(p, x2, gates, idx, e, k, width)
+    counted = (moe.pair_counts("cpu") - before).tolist()
+    want, counts = _synced_dispatch(p, x2, gates, idx, e, k, width)
+    assert counted == counts
+    return got, want, counts
+
+
+# (held experts, router width, skew): all held; all held and crowded onto two
+# experts (drops at capacity); 8 of 16 held (absent experts)
+TOP2 = {"held": (8, 8, 0.0), "drops": (8, 8, 6.0), "absent": (8, 16, 0.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 8, 40, 256])
+@pytest.mark.parametrize("kind", sorted(TOP2))
+def test_dispatch_equals_the_synced_dispatch_at_top2_bit_for_bit(kind, t, dtype):
+    e, width, skew = TOP2[kind]
+    p = _experts(e, t, dtype)
+    x2 = torch.randn(t, D, generator=torch.Generator().manual_seed(100 + t)).to(dtype)
+    gates, idx = _softmax_routing(t, width, t, skew)
+    got, want, (routed, held, dropped) = _both(p, x2, gates, idx, e, 2, width)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert routed == 2 * t and (held == routed) == (width == e)
+    if kind == "drops" and t >= 40:
+        assert dropped > 0
+    if kind == "absent":
+        assert held < routed or t < 3
+
+
+@pytest.mark.parametrize("held", [8, 256], ids=["ep-share", "whole"])
+@pytest.mark.parametrize("t", [1, 8, 40, 256])
+def test_dispatch_matches_the_synced_dispatch_at_deepseek_top8(t, held):
+    """deepseek's sigmoid group-limited top-8 over 256 experts, holding 8 of
+    them (the cut deepseek's EP share: most pairs absent) or all 256."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    m = dataclasses.replace(get_config("deepseek-v3-671b").moe, num_experts=held,
+                            num_routed=256 if held < 256 else 0)
+    cfg = get_smoke_config("deepseek-v3-671b").scaled(d_model=D, moe=m, dtype="float32")
+    g = torch.Generator().manual_seed(t)
+    logits = torch.randn(t, 256, generator=g)
+    gates, idx = moe.route_grouped(cfg, logits, torch.randn(256, generator=g) / 10)
+    p = _experts(held, t)
+    x2 = torch.randn(t, D, generator=g)
+    got, want, (routed, n_held, dropped) = _both(p, x2, gates, idx, held, 8, 256)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert routed == 8 * t and (n_held == routed) == (held == 256)
+
+
+@pytest.mark.parametrize("t", [1, 8, 64])
+def test_dispatch_with_no_pair_held(t):
+    """Every pair routed to an absent expert: the output is 0, nothing held."""
+    e, width = 4, 16
+    idx = torch.randint(e, width, (t, 2), generator=torch.Generator().manual_seed(t))
+    gates = torch.full((t, 2), 0.5)
+    x2 = torch.randn(t, D)
+    got, want, counts = _both(_experts(e, 1), x2, gates, idx, e, 2, width)
+    assert torch.equal(got, torch.zeros(t, D)) and torch.equal(want, got)
+    assert counts == [2 * t, 0, 0]
+
+
+@pytest.mark.parametrize("case", ["top2-held", "top2-drops", "top2-absent", "top8-absent"])
+def test_dispatch_gradients_equal_the_synced_dispatch(case):
+    """Gradients of the tokens, the gates and the three expert weights in
+    fp32: the dropped and absent pairs' gates get none, as before."""
+    t = 48
+    if case.startswith("top2"):
+        e, width, skew = TOP2[case.split("-")[1]]
+        k = 2
+    else:
+        e, width, skew, k = 8, 32, 0.0, 8
+    gates, idx = _softmax_routing(t, width, 7, skew, k=k)
+    params = _experts(e, 8)
+    x2 = torch.randn(t, D, generator=torch.Generator().manual_seed(9))
+    grads = []
+    for fn in (moe._dispatch, lambda *a: _synced_dispatch(*a)[0]):
+        p = {n: v.clone().requires_grad_() for n, v in params.items()}
+        xg, gg = x2.clone().requires_grad_(), gates.clone().requires_grad_()
+        out = fn(p, xg, gg, idx, e, k, width)
+        (out * torch.linspace(-1, 1, D)).square().sum().backward()
+        grads.append([xg.grad, gg.grad] + [p[n].grad for n in sorted(p)])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert grads[0][1].abs().sum() > 0

@@ -44,10 +44,9 @@ def _moe_layers(cfg) -> int:
 
 
 def _want_syncs(cfg, steps) -> dict:
-    want = {"engine.upload": 1, "engine.collect": 2}
-    if cfg.moe is not None:
-        want["moe.dispatch"] = _moe_layers(cfg) * (1 + steps)
-    return want
+    """3 a batch, whatever the model and the steps: the MoE dispatch waits
+    for nothing."""
+    return {"engine.upload": 1, "engine.collect": 2}
 
 
 def test_span_without_a_profiler_is_the_shared_null_context():
@@ -209,16 +208,15 @@ def test_profiler_sees_the_mla_and_route_ranges(share):
 
 @pytest.mark.parametrize("share", [False, True], ids=["whole", "ep-share"])
 def test_moe_pairs_by_phase_and_no_added_host_sync(share):
-    """The pairs routed, held and dropped by phase, counted from what the
-    dispatch's one sync brings back: 3 syncs a batch plus one a MoE layer
-    of each call, as before."""
+    """The pairs routed, held and dropped by phase, counted on the device and
+    brought back with the finite flag: 3 syncs a batch, none in a MoE
+    layer."""
     cfg, eng, toks = _deepseek_engine(share)
     moe_layers = cfg.num_layers - cfg.num_dense_layers
     k = cfg.moe.top_k
     eng.generate(toks, num_steps=STEPS)
     st = eng.last_stats
-    assert st["syncs"] == {"engine.upload": 1, "engine.collect": 2,
-                           "moe.dispatch": moe_layers * (1 + STEPS)}
+    assert st["syncs"] == {"engine.upload": 1, "engine.collect": 2}
     pre, dec = st["moe_pairs"]["prefill"], st["moe_pairs"]["decode"]
     assert pre["routed"] == 2 * PROMPT * k * moe_layers
     assert dec["routed"] == 2 * k * moe_layers * STEPS
