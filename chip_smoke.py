@@ -2115,7 +2115,7 @@ def ring_check(device, args, cfg=None, batch=RING_BATCH, prompt_len=RING_PROMPT,
                max_len=RING_MAX_LEN):
     """gemma2-2b's sliding-window ring past its wrap, at full width, on its
     level-0 weights. The prompt is longer than the window (4608 against
-    4096), so ``pad_caches`` rolls the local layers' last 4096 positions by
+    4096), so the prefill rolls the local layers' last 4096 positions by
     4608 % 4096 = 512 and each decode step writes slot ``lengths % 4096`` of
     their ring; the global layers decode into 5120 slots. Both paths are fed
     the kernels-off path's greedy tokens, so that a near-tie cannot send them

@@ -154,10 +154,11 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None, *,
             use_kernels: bool = False, caches=None) -> Tuple[torch.Tensor, Any]:
     """Process the prompt; returns (last-position logits, caches per group
-    and sublayer). Where ``caches`` (a cache tree) gives a GQA sublayer a
-    decode cache, each layer writes its K/V into it (``attention.place_kv``)
-    and it comes back; every other sublayer's raw prompt-length cache comes
-    back stacked ((L, B, S, KV, D) for GQA), for the engine's ``pad_caches``."""
+    and sublayer). Given ``caches`` (a decode cache tree, ``init_cache``'s
+    shapes), every layer writes its cache into it
+    (``transformer.place_cache``) and that tree comes back. Without it the
+    raw prompt-length caches come back stacked ((L, B, S, KV, D) for GQA),
+    as the JAX package's prefill gives them."""
     x = shard_activation(_embed_inputs(cfg, params, tokens, embeds),
                          ("batch", "seq", None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]

@@ -51,9 +51,9 @@ def mamba_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def _mamba_inner(cfg: ModelConfig, p: ParamTree, xz: torch.Tensor,
-                 conv_state: torch.Tensor):
+                 conv_state: torch.Tensor | None):
     """Shared projections for a window of tokens.
-    xz: (B, S, 2*d_in); conv_state: (B, d_conv-1, d_in).
+    xz: (B, S, 2*d_in); conv_state: (B, d_conv-1, d_in), None for zeros.
     Returns (u, dt, Bm, Cm, z, new_conv_state)."""
     s = cfg.ssm
     r = _dt_rank(cfg)
@@ -61,13 +61,14 @@ def _mamba_inner(cfg: ModelConfig, p: ParamTree, xz: torch.Tensor,
     seq = x_part.shape[1]
 
     # depthwise causal conv over time, seeded with the carried window
-    xc = torch.cat([conv_state, x_part], dim=1)                 # (B, S+c-1, d_in)
+    xc = (F.pad(x_part, (0, 0, s.d_conv - 1, 0)) if conv_state is None
+          else torch.cat([conv_state, x_part], dim=1))          # (B, S+c-1, d_in)
     w = p["w_conv"].to(xz.dtype)                                # (c, d_in)
     u = xc[:, 0:seq] * w[0]
     for i in range(1, s.d_conv):
         u = u + xc[:, i:i + seq] * w[i]
     u = F.silu(u + p["b_conv"].to(xz.dtype))
-    new_conv = xc[:, -(s.d_conv - 1):] if s.d_conv > 1 else conv_state
+    new_conv = xc[:, seq:]                                      # the last c-1 tokens
 
     proj = u @ p["w_x"].to(xz.dtype)                            # (B,S,r+2N)
     dt = F.softplus(proj[..., :r] @ p["w_dt"].to(xz.dtype)
@@ -80,28 +81,28 @@ def _mamba_inner(cfg: ModelConfig, p: ParamTree, xz: torch.Tensor,
 def mamba_apply_dense(cfg: ModelConfig, p: ParamTree, x: torch.Tensor,
                       state: MambaState | None = None, use_kernel: bool = False
                       ) -> Tuple[torch.Tensor, MambaState]:
-    """Full-sequence selective scan. x: (B, S, d).
+    """Full-sequence selective scan. x: (B, S, d); ``state`` None is the
+    zero state.
 
     ``use_kernel`` routes the recurrence through the K3 kernel when the state
-    is fresh and there is more than one token (the engine always prefills
-    from scratch); the kernel adds the skip term in fp32 before its cast,
-    the loop path adds it in ``x.dtype`` after the cast, as in the JAX
+    is fresh (None) and there is more than one token (the engine always
+    prefills from scratch); the kernel adds the skip term in fp32 before its
+    cast, the loop path adds it in ``x.dtype`` after the cast, as in the JAX
     package."""
     b, seq, _ = x.shape
-    fresh = state is None
-    if state is None:
-        state = init_mamba_state(cfg, b, dtype=x.dtype, device=x.device)
     xz = x @ p["w_in"].to(x.dtype)
-    u, dt, bm, cm, z, new_conv = _mamba_inner(cfg, p, xz, state.conv)
+    u, dt, bm, cm, z, new_conv = _mamba_inner(cfg, p, xz,
+                                              None if state is None else state.conv)
 
     a = -torch.exp(p["a_log"].float())                          # (d_in, N)
 
-    if use_kernel and fresh and seq > 1:
+    if use_kernel and state is None and seq > 1:
         from repro_torch.kernels import ops as kops
         y, h_final = kops.ssm_scan(u, dt, bm, cm, a, p["d_skip"].float())
         y = y.to(x.dtype)
     else:
-        h = state.h.float()
+        h = (torch.zeros((b,) + a.shape, dtype=torch.float32, device=x.device)
+             if state is None else state.h.float())
         dtf = dt.float()
         ys = []
         for t in range(seq):

@@ -217,17 +217,17 @@ def sublayer_apply(cfg: ModelConfig, sl: SubLayer, p, x, positions,
     state comes back as new tensors (``group_apply`` copies them into the
     stacked buffers)."""
     if sl.mixer == "rwkv":
-        return _rwkv_sublayer(cfg, p, x, cache, mode=mode, use_kernels=use_kernels)
+        return _rwkv_sublayer(cfg, sl, p, x, cache, mode=mode, use_kernels=use_kernels)
     out, new_cache = mixer_apply(cfg, sl, p, x, positions, cache, lengths,
                                  mode=mode, use_kernels=use_kernels)
     x, aux = mlp_half_apply(cfg, sl, p, x, out, mode=mode)
     return x, new_cache, aux
 
 
-def _rwkv_sublayer(cfg, p, x, cache, *, mode: str, use_kernels: bool):
+def _rwkv_sublayer(cfg, sl, p, x, cache, *, mode: str, use_kernels: bool):
     h = _norm(cfg, p["norm_mixer"], x)
-    state = cache if mode == "decode" else ssm.init_rwkv_state(
-        cfg, x.shape[0], x.dtype, device=x.device)
+    state = cache if mode == "decode" else init_sublayer_cache(
+        cfg, sl, x.shape[0], x.shape[1], x.dtype, x.device)
     out, new_wkv, new_shift = ssm.rwkv_time_mix(
         cfg, p["rwkv"], h, state, use_kernel=use_kernels and mode != "decode")
     x = x + out
@@ -291,6 +291,9 @@ def mlp_half_apply(cfg: ModelConfig, sl: SubLayer, p, x, mixer_out, *, mode: str
 
 def init_sublayer_cache(cfg: ModelConfig, sl: SubLayer, batch: int,
                         max_len: int, dtype=torch.bfloat16, device=None):
+    """One layer's zeroed decode cache: GQA K/V (a sliding window's ring of
+    ``min(window, max_len)`` slots), an MLA latent and rope key, a Mamba or
+    RWKV state. The one place that shapes a decode cache."""
     if sl.mixer == "rwkv":
         return ssm.init_rwkv_state(cfg, batch, dtype, device=device)
     if sl.mixer == "mamba":
@@ -305,16 +308,18 @@ def init_sublayer_cache(cfg: ModelConfig, sl: SubLayer, batch: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
-    """Full-model cache tree on ``device`` (None: the card): per group, per
-    sublayer, stacked n_units."""
+    """Full-model decode cache tree on ``device`` (None: the card): per
+    group, per sublayer, each tensor stacked to ``(n_units, batch, ...)``
+    (zero units give ``L = 0``)."""
     device = resolve_device(device)
     out = {}
     for g in layer_plan(cfg):
         unit = {}
         for i, sl in enumerate(g.pattern):
-            one = init_sublayer_cache(cfg, sl, batch, max_len, dtype, device)
-            unit[f"sub{i}"] = type(one)(
-                *(t.new_zeros((g.n_units,) + tuple(t.shape)) for t in one))
+            one = init_sublayer_cache(cfg, sl, batch, max_len, dtype, "meta")
+            unit[f"sub{i}"] = type(one)(*(
+                torch.zeros((g.n_units,) + tuple(t.shape), dtype=t.dtype, device=device)
+                for t in one))
         out[g.name] = unit
     return out
 
@@ -323,6 +328,26 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
                    dtype=torch.bfloat16):
     """The cache tree's shapes and dtypes on the ``meta`` device."""
     return init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+def place_cache(src, dst, window: int | None):
+    """Write one layer's cache ``src`` into its decode cache ``dst`` of the
+    same type, tensor by tensor, and return ``dst``: K/V by
+    ``attention.place_kv`` (a sliding window's ring keyed by position), an
+    MLA latent and rope key into their first S slots, a Mamba or RWKV state
+    whole. Slots past the prompt keep what they held; a tensor that is its
+    own destination (a decode step writes K/V and latents in place) is left
+    alone."""
+    for a, b in zip(src, dst):
+        if a is b:
+            continue
+        if isinstance(dst, attn.KVCache):
+            attn.place_kv(a, b, a.shape[1], window)
+        elif isinstance(dst, attn.MLACache):
+            b[:, :a.shape[1]].copy_(a)
+        else:
+            b.copy_(a)
+    return dst
 
 
 # ----------------------------------------------------------------------
@@ -419,13 +444,12 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
                 remat: bool = False, remat_policy: str = "nothing"):
     """Returns (x, caches_stacked | None, aux_sum).
 
-    decode: each unit's cache is a view ``stacked[u]``; the attention writes
-    its K/V (or MLA latent) row in place, and a new Mamba or RWKV state is
-    copied into the view, so the stacked caches that come back are the ones
-    that went in. prefill: where ``caches_stacked`` gives a sublayer a
-    decode cache (GQA layers), each unit's K/V is placed into its view
-    ``stacked[u]`` (``attention.place_kv``) and that cache comes back; the
-    other sublayers' per-unit caches are stacked, K/V to
+    decode, and prefill given ``caches_stacked`` (a group of a decode cache
+    tree): each unit's cache goes into its view ``stacked[u]`` through
+    :func:`place_cache` (decode writes K/V and MLA latent rows in place and
+    copies a new Mamba or RWKV state in), and the stacked caches that come
+    back are the ones that went in. prefill without ``caches_stacked`` (the
+    raw form): the per-unit caches of the prompt are stacked, K/V to
     ``(L, B, S, KV, D)``, MLA latents to ``(L, B, S, r)``, Mamba and RWKV
     states to ``(L, B, ...)``; a group of zero units gives caches with
     ``L = 0``. dense (training): ``aux_sum`` adds up the MoE load-balance
@@ -438,8 +462,6 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r} is not one of {REMAT_POLICIES}")
     collected = {f"sub{i}": [] for i in range(len(group.pattern))}
-    placed = {k: c for k, c in (caches_stacked or {}).items()
-              if mode == "prefill" and c is not None}
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
 
     for u in range(group.n_units):
@@ -450,30 +472,24 @@ def group_apply(cfg: ModelConfig, group: Group, params_stacked, x, positions,
             aux_sum = aux_sum + unit_aux
             continue
         for i, sl in enumerate(group.pattern):
-            c_in = None
-            if mode == "decode":
+            view = None
+            if caches_stacked is not None:
                 c = caches_stacked[f"sub{i}"]
-                c_in = type(c)(*(t[u] for t in c))
+                view = type(c)(*(t[u] for t in c))
             x, c_out, aux = sublayer_apply(
-                cfg, sl, p_unit[f"sub{i}"], x, positions, c_in, lengths,
+                cfg, sl, p_unit[f"sub{i}"], x, positions,
+                view if mode == "decode" else None, lengths,
                 mode=mode, use_kernels=use_kernels)
             if aux is not None:
                 aux_sum = aux_sum + moe_mod.aux_load_balance_loss(cfg, aux)
-            if mode == "decode":
-                for dst, src in zip(c_in, c_out):
-                    if src is not dst:
-                        dst.copy_(src)
-            elif f"sub{i}" in placed:
-                window = attn.layer_window(cfg, sl.is_global)
-                for dst, src in zip(placed[f"sub{i}"], c_out):
-                    attn.place_kv(src, dst[u], x.shape[1], window)
+            if view is not None:
+                place_cache(c_out, view, attn.layer_window(cfg, sl.is_global))
             elif mode == "prefill":
                 collected[f"sub{i}"].append(c_out)
-    if mode == "decode":
+    if caches_stacked is not None:
         return x, caches_stacked, aux_sum
     if mode == "prefill":
-        return x, {k: (placed[k] if k in placed
-                       else type(cs[0])(*(torch.stack(f) for f in zip(*cs))) if cs
+        return x, {k: (type(cs[0])(*(torch.stack(f) for f in zip(*cs))) if cs
                        else _empty_stack(cfg, group.pattern[i], x))
                    for i, (k, cs) in enumerate(collected.items())}, aux_sum
     return x, None, aux_sum

@@ -1,47 +1,47 @@
-"""Greedy decode steps replayed from CUDA graphs.
+"""Decode steps at fixed addresses, replayed from CUDA graphs where they can be.
 
-A model whose decode step never waits for the host (:func:`graph_route`:
-every sublayer a GQA mixer with a dense or MoE MLP, on the card) has its
-whole greedy step captured once for each batch size and replayed at every
+Every engine decodes through one :class:`DecodeSteps`: a :class:`Step` for
+each batch size, bound to a decode cache tree of that size in its device's
+:class:`DecodeStore`. The engine's prefill writes every layer's cache into
+the step's tree (``model.prefill(caches=...)``: K/V, MLA latents and rope
+keys, Mamba and RWKV states), :meth:`DecodeSteps.start` writes its argmax,
+lengths and finite flag into the step's buffers, and each
+:meth:`DecodeSteps.replay` runs one step, which reads the token, the lengths
+and the caches and writes the next token, the flag (``&=``) and the lengths
++ 1 back in place.
+
+Where :func:`graph_route` allows it (on the card, every sublayer a GQA mixer
+with a dense or MoE MLP: no host sync in the step), a greedy step is
+captured into a CUDA graph once for each batch size and replayed at every
 step: the same kernels in the same order at the same precision, K2 included,
 with the host's launch work gone. The MoE dispatch has no host sync, and
 adds its pair counts to a tensor on the device (``moe.pair_counts``), so a
-replay counts them too. MLA keeps its latent caches at no fixed address
-(``engine.pad_caches``), and Mamba's and RWKV's states are not yet written
-in place: those models, the CPU and sampled generation keep the engine's
-eager loop.
+replay counts them too. Elsewhere (MLA, Mamba, RWKV, the CPU), and for
+sampled generation, which draws each token from the caller's generator by
+``multinomial``, the same step runs eagerly on the same buffers.
 
-Fixed addresses. A :class:`Step` (one batch size of one engine) owns the
-token, lengths and finite-flag buffers; the step reads the token, the lengths
-and the decode caches and writes the next token, the flag (``&=``) and the
-lengths + 1 back in place. The engine's prefill writes each layer's K/V
-straight into the step's cache views (``model.prefill(caches=...)``, as it
-writes into fresh caches off this route), and :meth:`DecodeGraphs.start` its
-argmax, lengths and finite flag into the buffers.
-
-Memory. A :class:`DecodeStore` holds the decode caches of one device, one
-pair of (layers, batch, slots, KV heads, head dim) tensors for each cache
-geometry (group, sublayer, slots, KV heads, head dim, dtype), shared by every
-engine of that geometry and sized for the most layers and the largest batch
-(rounded up to a power of two) that have used it; a step binds
-``[:layers, :n]`` views. Slots past a row's length hold what an earlier
-batch left there: the decode mask keeps the attention off them. Every graph
-of a store draws on one memory pool: replays on one stream never overlap,
-and no graph keeps a tensor of the pool alive but its own logits. When a
-cache grows, every step bound to it is re-bound and re-captured at once.
-Engines hold their store, and the store only refers to them weakly: when the
-last engine of a device goes, its caches, pool and graphs go with it.
+Memory. A :class:`DecodeStore` holds the decode caches of one device: one
+``(layers, batch, ...)`` tensor for each tensor of a cache tree, keyed by
+(group, sublayer, field, shape after ``(layers, batch)``, dtype)
+(:func:`cache_layout`, read off ``transformer.abstract_cache``), shared by
+every engine whose tree has that key and sized for the most layers and the
+largest batch (rounded up to a power of two) that have used it; a step binds
+``[:layers, :n]`` views, which rebuild the tree. Slots past a row's length
+hold what an earlier batch left there: the decode masks keep the attention
+off them, and the prefill overwrites a recurrent state whole. Every graph of
+a store draws on one memory pool: replays on one stream never overlap, and
+no graph keeps a tensor of the pool alive but its own logits. When a tensor
+grows, every step bound to it is re-bound, and re-captured at once if it had
+a graph. Engines hold their store, and the store only refers to them weakly:
+when the last engine of a device goes, its caches, pool and graphs go with
+it.
 
 Counters. The store counts the graphs captured on its device
-(``captures``), an engine's graphs the steps replayed (``replays``). Capture
-launches nothing, so the kernels' ``launches`` counters (and launches by
-route), and the kernel-call counters open in :func:`replayed_calls`, are
-put back after a capture, and each replay adds what it captured.
-
-On the CPU nothing is recorded: a step is built without a graph and each
-replay runs it eagerly on the same buffers and views, counted as on the
-card; the tests hold that path bit for bit against the eager loop (the
-engine itself keeps the eager loop there).
+(``captures``), a runner the graphs it replayed (``replays``); both stay 0
+where nothing is captured. Capture launches nothing, so the kernels'
+``launches`` counters (and launches by route), and the kernel-call counters
+open in :func:`replayed_calls`, are put back after a capture, and each
+replay adds what it captured.
 """
 from __future__ import annotations
 
@@ -54,13 +54,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import resolve_dtype
 
-# a cache geometry: (group, sublayer index, slots, KV heads, head dim, dtype)
-Geometry = Tuple[str, int, int, int, int, torch.dtype]
+# a tensor of a cache tree: (group, sublayer, field, shape after (layers, batch), dtype)
+Key = Tuple[str, str, str, Tuple[int, ...], torch.dtype]
 
 # the store of each device, alive while an engine holds it
 _STORES: "weakref.WeakValueDictionary[torch.device, DecodeStore]" = \
@@ -76,35 +75,26 @@ _CALL_COUNTERS: List[collections.Counter] = []
 def graph_route(cfg: ModelConfig, device: torch.device) -> bool:
     """Whether greedy decode steps of ``cfg`` on ``device`` replay from CUDA
     graphs: on the card, and only where every sublayer is a GQA mixer with a
-    dense or MoE MLP (no host sync in the step, every cache at a fixed
-    address). MLA, Mamba and RWKV take the eager loop."""
+    dense or MoE MLP (no host sync in the step). MLA, Mamba and RWKV run
+    their steps eagerly."""
     return device.type == "cuda" and all(
         sl.mixer == "gqa" and sl.mlp in ("dense", "moe")
         for g in tfm.layer_plan(cfg) for sl in g.pattern)
 
 
-def kv_layout(cfg: ModelConfig, max_len: int) -> List[Tuple[Geometry, int]]:
-    """(geometry, layers) of each GQA sublayer of ``cfg``'s decode caches, in
-    the order of its layer plan."""
-    dtype = resolve_dtype(cfg.dtype)
-    out = []
-    for g in tfm.layer_plan(cfg):
-        for i, sl in enumerate(g.pattern):
-            if sl.mixer == "gqa":
-                window = attn_lib.layer_window(cfg, sl.is_global)
-                slots = max_len if window is None else min(window, max_len)
-                out.append(((g.name, i, slots, cfg.num_kv_heads, cfg.head_dim, dtype),
-                            g.n_units))
-    return out
+def cache_layout(cfg: ModelConfig, max_len: int) -> dict:
+    """``cfg``'s decode cache tree of ``max_len`` slots
+    (``transformer.abstract_cache``, in ``cfg.dtype``) with each tensor
+    replaced by its (key, layers)."""
+    tree = tfm.abstract_cache(cfg, 1, max_len, resolve_dtype(cfg.dtype))
+    return {g: {sub: type(c)(*(((g, sub, f, tuple(t.shape[2:]), t.dtype), t.shape[0])
+                               for f, t in zip(c._fields, c)))
+                for sub, c in unit.items()}
+            for g, unit in tree.items()}
 
 
-def kv_tree(cfg: ModelConfig, caches: List[attn_lib.KVCache]) -> dict:
-    """The cache tree (group -> ``sub<i>``) of ``caches``, one a GQA sublayer
-    in :func:`kv_layout`'s order; None at every other sublayer."""
-    it = iter(caches)
-    return {g.name: {f"sub{i}": next(it) if sl.mixer == "gqa" else None
-                     for i, sl in enumerate(g.pattern)}
-            for g in tfm.layer_plan(cfg)}
+def _entries(layout: dict) -> List[Tuple[Key, int]]:
+    return [e for unit in layout.values() for c in unit.values() for e in c]
 
 
 @contextlib.contextmanager
@@ -134,15 +124,14 @@ def _pow2(n: int) -> int:
 
 
 class DecodeStore:
-    """The decode caches of one device by geometry, and the graph memory
+    """The decode cache tensors of one device by key, and the graph memory
     pool and capture stream every step bound to them shares. ``captures``
-    counts the steps built on the device by any engine (on the card, each a
-    graph captured)."""
+    counts the graphs captured on the device by any engine."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.caches: Dict[Geometry, attn_lib.KVCache] = {}   # (L, B, S, KV, D) each
-        self.users: "weakref.WeakSet[DecodeGraphs]" = weakref.WeakSet()
+        self.caches: Dict[Key, torch.Tensor] = {}   # (layers, batch, ...) each
+        self.users: "weakref.WeakSet[DecodeSteps]" = weakref.WeakSet()
         self.graphs: "weakref.WeakSet[torch.cuda.CUDAGraph]" = weakref.WeakSet()
         self.captures = 0
         self._pool = None
@@ -157,36 +146,37 @@ class DecodeStore:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool, _CAPTURE_STREAMS[self.device]
 
-    def reserve(self, layout: List[Tuple[Geometry, int]], n: int):
-        """Grow each cache of ``layout`` ((geometry, layers) pairs) to hold
-        its layers and ``n`` rows; every step bound to a grown cache is
+    def reserve(self, layout: dict, n: int):
+        """Grow each tensor of ``layout`` (:func:`cache_layout`) to hold its
+        layers and ``n`` rows; every step bound to a grown tensor is
         re-bound (and re-captured) before this returns."""
         grown = set()
-        for geo, layers in layout:
-            c = self.caches.get(geo)
-            if c is not None and c.k.shape[0] >= layers and c.k.shape[1] >= n:
+        for key, layers in _entries(layout):
+            t = self.caches.get(key)
+            if t is not None and t.shape[0] >= layers and t.shape[1] >= n:
                 continue
-            have = (0, 0) if c is None else tuple(c.k.shape[:2])
-            shape = (max(layers, have[0]), _pow2(max(n, have[1]))) + geo[2:5]
-            self.caches[geo] = attn_lib.KVCache(
-                *(torch.zeros(shape, dtype=geo[5], device=self.device) for _ in "kv"))
-            grown.add(geo)
+            have = (0, 0) if t is None else tuple(t.shape[:2])
+            shape = (max(layers, have[0]), _pow2(max(n, have[1]))) + key[3]
+            self.caches[key] = torch.zeros(shape, dtype=key[4], device=self.device)
+            grown.add(key)
         if grown:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)   # no replay still reads what goes
             for user in list(self.users):
                 user.rebind(grown)
 
-    def views(self, layout: List[Tuple[Geometry, int]], n: int) -> List[attn_lib.KVCache]:
-        return [attn_lib.KVCache(*(t[:layers, :n] for t in self.caches[geo]))
-                for geo, layers in layout]
+    def views(self, layout: dict, n: int) -> dict:
+        """The cache tree of ``layout`` for ``n`` rows, in ``[:layers, :n]``
+        views of the store's tensors."""
+        return {g: {sub: type(c)(*(self.caches[key][:layers, :n] for key, layers in c))
+                    for sub, c in unit.items()}
+                for g, unit in layout.items()}
 
 
 class Step:
     """The step of one batch size: its buffers, its cache views (the decode
-    cache tree), whether it is built, its graph (on the card), the logits of
-    its last run, and what its capture took off the launch and call
-    counters."""
+    cache tree), its graph where one was captured, the logits that graph
+    writes, and what its capture took off the launch and call counters."""
 
     def __init__(self, n: int, device: torch.device):
         self.n = n
@@ -194,7 +184,6 @@ class Step:
         self.lengths = torch.zeros(n, dtype=torch.long, device=device)
         self.finite = torch.ones((), dtype=torch.bool, device=device)
         self.caches: Optional[dict] = None
-        self.built = False
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.logits: Optional[torch.Tensor] = None
         self.launched: Dict[str, Tuple[int, Dict[str, int]]] = {}
@@ -206,16 +195,36 @@ def _launch_counts() -> Dict[str, Tuple[int, Dict[str, int]]]:
             for name, m in kops.KERNELS.items()}
 
 
-class DecodeGraphs:
-    """An engine's greedy steps, one a batch size, bound to its device's
-    store. ``replays`` counts the steps it replayed. Holds no reference to
-    its engine, so that dropping the engine frees it at once."""
+def _record(store: DecodeStore, fn) -> torch.cuda.CUDAGraph:
+    """``fn`` recorded into a CUDA graph on the store's capture stream, in
+    its pool (nothing runs)."""
+    pool, stream = store.capture_pool_and_stream()
+    graph = torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream(store.device))
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool)
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(store.device).wait_stream(stream)
+    store.graphs.add(graph)
+    return graph
+
+
+class DecodeSteps:
+    """An engine's decode steps, one a batch size, bound to its device's
+    store. ``captured`` (:func:`graph_route`) says whether a greedy step is
+    captured into a CUDA graph; ``replays`` counts the graphs replayed.
+    Holds no reference to its engine, so that dropping the engine frees it
+    at once."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int, use_kernels: bool,
                  device: torch.device):
         self.cfg, self.params, self.use_kernels = cfg, params, use_kernels
         self.device = device
-        self.layout = kv_layout(cfg, max_len)
+        self.captured = graph_route(cfg, device)
+        self.layout = cache_layout(cfg, max_len)
         self.steps: Dict[int, Step] = {}
         self.replays = 0
         self.store = store_for(device)
@@ -233,22 +242,24 @@ class DecodeGraphs:
             self._bind(st)
         return st
 
-    def start(self, st: Step, logits: torch.Tensor, lengths: torch.Tensor):
+    def start(self, st: Step, logits: torch.Tensor, lengths: torch.Tensor,
+              sample_gen: Optional[torch.Generator] = None):
         """The prefill's argmax, lengths and finite flag into ``st``'s
-        buffers; its graph captured if it has none yet."""
+        buffers; a greedy step on the graph route captured if it has no
+        graph yet."""
         st.tok.copy_(torch.argmax(logits, dim=-1))
         st.lengths.copy_(lengths)
         st.finite.copy_(torch.isfinite(logits).all())
-        if not st.built:
+        if self.captured and sample_gen is None and st.graph is None:
             self._capture(st)
 
-    def replay(self, st: Step):
-        """One step: the graph's replay, with its captured launches and calls
-        counted again; on the CPU the step run eagerly."""
+    def replay(self, st: Step, sample_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """One step; returns its logits. A captured greedy step replays its
+        graph, with its captured launches and calls counted again; any other
+        runs eagerly, a sampled one drawing from ``sample_gen``."""
+        if st.graph is None or sample_gen is not None:
+            return self._step(st, sample_gen)
         self.replays += 1
-        if st.graph is None:
-            st.logits = self._step(st)
-            return
         st.graph.replay()
         for name, (n, routes) in st.launched.items():
             mod = kops.KERNELS[name]
@@ -258,52 +269,46 @@ class DecodeGraphs:
         for counter, calls in st.calls:
             if any(counter is c for c in _CALL_COUNTERS):
                 counter.update(calls)
+        return st.logits
 
     def rebind(self, grown):
-        """Re-bind (and re-capture) every step that uses a grown cache."""
-        if any(geo in grown for geo, _ in self.layout):
+        """Re-bind (and re-capture) every step that uses a grown tensor."""
+        if any(key in grown for key, _ in _entries(self.layout)):
             for st in self.steps.values():
-                built = st.built
+                captured = st.graph is not None
                 self._bind(st)
-                if built:
+                if captured:
                     self._capture(st)
 
     def _bind(self, st: Step):
-        st.caches = kv_tree(self.cfg, self.store.views(self.layout, st.n))
+        st.caches = self.store.views(self.layout, st.n)
         st.graph = st.logits = None
-        st.built = False
 
-    def _step(self, st: Step) -> torch.Tensor:
+    def _step(self, st: Step, sample_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         logits, _, lengths = model_lib.decode_step(
             self.cfg, self.params, st.caches, st.lengths, st.tok,
             use_kernels=self.use_kernels)
         st.finite &= torch.isfinite(logits).all()
-        st.tok.copy_(torch.argmax(logits, dim=-1))
+        if sample_gen is None:
+            st.tok.copy_(torch.argmax(logits, dim=-1))
+        else:
+            probs = torch.softmax(logits, dim=-1)
+            st.tok.copy_(torch.multinomial(probs, 1, generator=sample_gen)[:, 0])
         st.lengths.copy_(lengths)
         return logits
 
     def _capture(self, st: Step):
-        """Build ``st``'s step, counted in the store's ``captures``. On the
-        card it is recorded into a graph on the device's capture stream, in
-        the store's pool: nothing runs, and the launch counters and the call
-        counters of :func:`replayed_calls` are put back. On the CPU nothing
-        is recorded."""
+        """Record ``st``'s greedy step into a graph (:func:`_record`),
+        counted in the store's ``captures``: nothing runs, so the launch
+        counters and the call counters of :func:`replayed_calls` are put
+        back."""
         self.store.captures += 1
-        st.built = True
-        if self.device.type != "cuda":
-            return
-        pool, stream = self.store.capture_pool_and_stream()
         before = _launch_counts()
         calls0 = [(c, collections.Counter(c)) for c in _CALL_COUNTERS]
-        graph = torch.cuda.CUDAGraph()
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            graph.capture_begin(pool=pool)
-            try:
-                st.logits = self._step(st)
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
+
+        def step():
+            st.logits = self._step(st)
+        st.graph = _record(self.store, step)
         st.launched = {}
         for name, (n0, routes0) in before.items():
             mod = kops.KERNELS[name]
@@ -318,5 +323,3 @@ class DecodeGraphs:
             calls = counter - c0
             counter.subtract(calls)
             st.calls.append((counter, calls))
-        st.graph = graph
-        self.store.graphs.add(graph)

@@ -4,17 +4,22 @@ The engine owns one model variant on one device. The paper's Local Node
 "Inference" state calls into this; the Gateway's dispatcher decides which
 variant each worker group loads.
 
-Cache layout notes:
-  * the prefill writes each GQA layer's K/V straight into its max_len
-    decode cache (``attention.place_kv``): fresh zeroed caches, or on the
-    decode graphs' route their fixed ones. For sliding-window layers the
-    cache is a ring buffer keyed by absolute position (slot = pos % window),
-    so the last `window` tokens are rolled so that slot (pos % window) holds
-    position pos. ``pad_caches`` then zero-pads MLA latents and rope keys to
-    max_len; Mamba and RWKV states are fixed-size and pass through.
+Cache notes:
+  * the decode cache tree is the model's (``transformer.init_cache``: GQA
+    K/V, MLA latents and rope keys, Mamba and RWKV states), and the prefill
+    writes every layer's cache straight into it
+    (``transformer.place_cache``): a fresh tree for :meth:`Engine.prefill`,
+    a decode step's fixed one in :meth:`Engine.generate`. A sliding-window
+    layer's cache is a ring buffer keyed by absolute position (slot = pos %
+    window): the last `window` tokens are rolled so that slot (pos % window)
+    holds position pos.
   * decode writes the caches **in place**: ``Engine.decode`` hands back the
     cache tree it was given. This replaces the buffer donation
     (``donate_argnums``) of the JAX engine.
+  * ``generate`` runs one decode loop for every model, over the steps of
+    ``serving.decode_graph``: each replayed from a CUDA graph where
+    ``decode_graph.graph_route`` allows it, run eagerly on the same buffers
+    elsewhere.
 
 Device rule: ``device=None`` means the card and raises when there is none;
 the CPU is used only when the caller passes ``device="cpu"``.
@@ -27,38 +32,15 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import trace
 from repro_torch.core.batching import BatchFormation
-from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import resolve_device
+from repro_torch.models.layers import resolve_device, resolve_dtype
 from repro_torch.serving import decode_graph
-
-
-def pad_caches(cfg: ModelConfig, caches, max_len: int):
-    """Convert the prefill's caches to decode caches (max_len): MLA latents
-    and rope keys (prompt length) are zero-padded; GQA K/V, which the
-    prefill wrote into decode caches, and Mamba and RWKV states pass
-    through."""
-    out = {}
-    for g in tfm.layer_plan(cfg):
-        unit_out = {}
-        for i, sl in enumerate(g.pattern):
-            c = caches[g.name][f"sub{i}"]
-            if sl.mixer == "mla":   # (L, B, S, r) latent, (L, B, S, rope) key
-                pad = max_len - c.latent.shape[2]
-                unit_out[f"sub{i}"] = attn_lib.MLACache(
-                    latent=F.pad(c.latent, (0, 0, 0, pad)),
-                    k_rope=F.pad(c.k_rope, (0, 0, 0, pad)))
-            else:   # GQA decode caches; Mamba and RWKV states are fixed-size
-                unit_out[f"sub{i}"] = c
-        out[g.name] = unit_out
-    return out
 
 
 @dataclasses.dataclass
@@ -68,9 +50,9 @@ class EngineConfig:
 
 
 class Engine:
-    """One model variant on one device (None: the card). ``graphs`` replays
-    greedy decode steps from CUDA graphs where
-    :func:`decode_graph.graph_route` allows it, and is None elsewhere."""
+    """One model variant on one device (None: the card). ``runner`` holds its
+    decode steps, each replayed from a CUDA graph where
+    :func:`decode_graph.graph_route` allows it and run eagerly elsewhere."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: Optional[EngineConfig] = None,
                  device=None):
@@ -79,29 +61,20 @@ class Engine:
         self.ecfg = ecfg if ecfg is not None else EngineConfig()
         self.device = resolve_device(device)
         self.last_stats: dict = {}
-        self.graphs = None
-        if decode_graph.graph_route(cfg, self.device):
-            self.graphs = decode_graph.DecodeGraphs(
-                cfg, params, max_len=self.ecfg.max_len,
-                use_kernels=self.ecfg.use_kernels, device=self.device)
+        self.runner = decode_graph.DecodeSteps(
+            cfg, params, max_len=self.ecfg.max_len, use_kernels=self.ecfg.use_kernels,
+            device=self.device)
 
     def _to_device(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype).to(self.device)
 
-    def kv_caches(self, batch: int) -> dict:
-        """Zeroed decode caches of the GQA layers for ``batch`` rows (None
-        at every other sublayer), for the prefill to write its K/V into."""
-        return decode_graph.kv_tree(self.cfg, [
-            attn_lib.KVCache(*(torch.zeros((layers, batch) + geo[2:5], dtype=geo[5],
-                                           device=self.device) for _ in "kv"))
-            for geo, layers in decode_graph.kv_layout(self.cfg, self.ecfg.max_len)])
-
     @torch.inference_mode()
     def prefill(self, tokens, embeds=None, out=None):
-        """Returns (last-position logits, decode caches, lengths). Each GQA
-        layer writes its K/V straight into its decode cache: ``out`` where
-        given (the tree of a decode graph's step), else fresh ones
-        (:meth:`kv_caches`); no prompt-length copy of them is kept."""
+        """Returns (last-position logits, decode caches, lengths). Every layer
+        writes its cache straight into the decode cache tree ``out`` where
+        given (a decode step's), else into a fresh one
+        (``transformer.init_cache``), which comes back; no prompt-length copy
+        of it is kept."""
         # a copy from pageable host memory: the host waits for the stream
         with trace.host_sync("engine.upload"):
             tokens = self._to_device(tokens, torch.long)
@@ -113,12 +86,11 @@ class Engine:
             f"decode max_len={self.ecfg.max_len} shorter than prefill length {seq_len} "
             "(stub-frontend archs prepend stub_embed_len positions)")
         if out is None:
-            out = self.kv_caches(tokens.shape[0])
+            out = tfm.init_cache(self.cfg, tokens.shape[0], self.ecfg.max_len,
+                                 resolve_dtype(self.cfg.dtype), self.device)
         with trace.span("engine.prefill"):
-            logits, raw = model_lib.prefill(self.cfg, self.params, tokens, embeds,
-                                            use_kernels=self.ecfg.use_kernels, caches=out)
-        with trace.span("engine.pad_caches"):
-            caches = pad_caches(self.cfg, raw, self.ecfg.max_len)
+            logits, caches = model_lib.prefill(self.cfg, self.params, tokens, embeds,
+                                               use_kernels=self.ecfg.use_kernels, caches=out)
         lengths = torch.full((tokens.shape[0],), seq_len, dtype=torch.long,
                              device=self.device)
         return logits, caches, lengths
@@ -133,69 +105,50 @@ class Engine:
     @torch.inference_mode()
     def generate(self, tokens, num_steps: int, embeds=None,
                  sample_gen: Optional[torch.Generator] = None) -> np.ndarray:
-        """Greedy (or sampled) generation; returns (B, num_steps) tokens.
-        Leaves ``last_stats`` behind: ``prefill_ms`` and ``step_ms`` (one
-        interval a decode step; device time from CUDA events on the card,
-        host clock on the CPU), ``decode_ms_per_step`` (their mean), the
-        host time of prefill and of the decode loop less the waits of the
-        host syncs counted inside each (``prefill_host_ms``,
+        """Greedy (or sampled: each token after the first drawn by
+        ``multinomial`` from ``sample_gen``) generation; returns (B,
+        num_steps) tokens. Leaves ``last_stats`` behind: ``prefill_ms`` and
+        ``step_ms`` (one interval a decode step; device time from CUDA events
+        on the card, host clock on the CPU), ``decode_ms_per_step`` (their
+        mean), the host time of prefill and of the decode loop less the waits
+        of the host syncs counted inside each (``prefill_host_ms``,
         ``decode_host_ms``), the batch's host syncs by name (``syncs``, see
-        ``core.trace``), whether every logit was finite, and the decode
-        steps replayed from ``graphs`` and the steps it captured for this
-        call (``graph_steps``, ``graph_captures``). A model with MoE layers
-        adds ``moe_pairs``: by phase (``prefill``, ``decode``), the (token,
-        expert) pairs routed, routed to the experts held, and dropped of
-        those at capacity (``routed``, ``held``, ``dropped``), from device
-        copies of ``moe.pair_counts`` brought back with the finite flag."""
+        ``core.trace``), whether every logit was finite, and the decode steps
+        replayed from CUDA graphs and the graphs the device captured during
+        the call (``graph_steps``, ``graph_captures``; 0 where no step is
+        captured). A model with MoE layers adds ``moe_pairs``: by phase
+        (``prefill``, ``decode``), the (token, expert) pairs routed, routed to
+        the experts held, and dropped of those at capacity (``routed``,
+        ``held``, ``dropped``), from device copies of ``moe.pair_counts``
+        brought back with the finite flag."""
         clock = _Clock(self.device)
         counts0, wait0 = dict(trace.counts), trace.wait_s()
         pairs = moe_lib.pair_counts(self.device) if self.cfg.moe is not None else None
         snaps = [pairs.clone()] if pairs is not None else []
-        graphs = self.graphs if sample_gen is None else None
-        replays0, captures0 = (graphs.replays, graphs.store.captures) if graphs else (0, 0)
+        runner = self.runner
+        replays0, captures0 = runner.replays, runner.store.captures
         host0 = time.perf_counter()
         clock.mark()
-        if graphs is None:
-            logits, caches, lengths = self.prefill(tokens, embeds)
-        else:
-            step = graphs.step_for(len(tokens))
-            logits, _, lengths = self.prefill(tokens, embeds, out=step.caches)
+        step = runner.step_for(len(tokens))
+        logits, _, lengths = self.prefill(tokens, embeds, out=step.caches)
         clock.mark()
         host1, wait1 = time.perf_counter(), trace.wait_s()
         if pairs is not None:
             snaps.append(pairs.clone())
-        if graphs is None:
-            finite = torch.isfinite(logits).all()
-            out = []
-            tok = torch.argmax(logits, dim=-1)
-            for _ in range(num_steps):
-                with trace.span("engine.decode_step"):
-                    out.append(tok)
-                    logits, caches, lengths = self.decode(caches, lengths, tok)
-                    finite &= torch.isfinite(logits).all()
-                    if sample_gen is not None:
-                        probs = torch.softmax(logits, dim=-1)
-                        tok = torch.multinomial(probs, 1, generator=sample_gen)[:, 0]
-                    else:
-                        tok = torch.argmax(logits, dim=-1)
-                    clock.mark()        # ends this step's interval, starts the next's
-            out = torch.stack(out, dim=1)
-        else:
-            graphs.start(step, logits, lengths)
-            finite, out = step.finite, torch.empty((len(tokens), num_steps),
-                                                   dtype=torch.long, device=self.device)
-            for i in range(num_steps):
-                with trace.span("engine.decode_step"):
-                    out[:, i].copy_(step.tok)
-                    graphs.replay(step)
-                    clock.mark()
+        runner.start(step, logits, lengths, sample_gen)
+        out = torch.empty((len(tokens), num_steps), dtype=torch.long, device=self.device)
+        for i in range(num_steps):
+            with trace.span("engine.decode_step"):
+                out[:, i].copy_(step.tok)
+                runner.replay(step, sample_gen)
+                clock.mark()        # ends this step's interval, starts the next's
         host2, wait2 = time.perf_counter(), trace.wait_s()
         if pairs is not None:
             snaps.append(pairs)
         with trace.host_sync("engine.collect"):
             toks = out.cpu().numpy().astype(np.int32)
         with trace.host_sync("engine.collect"):
-            finite, *counts = torch.cat([finite.reshape(1).long(), *snaps]).tolist()
+            finite, *counts = torch.cat([step.finite.reshape(1).long(), *snaps]).tolist()
         finite = bool(finite)
         prefill_ms, *step_ms = clock.intervals_ms()
         self.last_stats = {"prefill_ms": prefill_ms,
@@ -204,9 +157,8 @@ class Engine:
                            "prefill_host_ms": (host1 - host0 - (wait1 - wait0)) * 1e3,
                            "decode_host_ms": (host2 - host1 - (wait2 - wait1)) * 1e3,
                            "syncs": trace.counts_since(counts0),
-                           "graph_steps": graphs.replays - replays0 if graphs else 0,
-                           "graph_captures": (graphs.store.captures - captures0
-                                              if graphs else 0)}
+                           "graph_steps": runner.replays - replays0,
+                           "graph_captures": runner.store.captures - captures0}
         if pairs is not None:
             self.last_stats["moe_pairs"] = {"prefill": _pairs(counts[0:3], counts[3:6]),
                                             "decode": _pairs(counts[3:6], counts[6:9])}

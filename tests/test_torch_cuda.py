@@ -699,17 +699,19 @@ GRAPH_CASES = {
 
 @pytest.mark.parametrize("case", sorted(GRAPH_CASES))
 def test_decode_graph_replays_equal_the_eager_loop(device, case):
-    """Greedy steps replayed from CUDA graphs against the eager loop on the
-    same weights: tokens and logits equal at batch sizes 3, 8 and 1 bound to
-    one cache (stale slots past the later, shorter prompts), no capture at a
-    warmed batch size, K1 and K2 counted by the launches each replay
-    captured, and so the kernel calls that ``chip_smoke.recording_calls``
-    records, and the caches' and graphs' memory back once the engine goes."""
+    """Greedy steps replayed from CUDA graphs against the engine's per-step
+    API (``prefill`` + ``decode`` on fresh cache trees) on the same weights:
+    tokens and logits equal at batch sizes 3, 8 and 1 bound to one cache
+    (stale slots past the later, shorter prompts), no capture at a warmed
+    batch size, K1 and K2 counted by the launches each replay captured, and
+    so the kernel calls that ``chip_smoke.recording_calls`` records, and the
+    caches' and graphs' memory back once the engine goes."""
     import collections
     import os
     import runpy
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import init_params
+    from repro_torch.models import moe
     from repro_torch.serving.engine import Engine, EngineConfig
     arch = case.removesuffix("-full")
     base_cfg = get_config(arch) if case.endswith("-full") else get_smoke_config(arch)
@@ -718,29 +720,29 @@ def test_decode_graph_replays_equal_the_eager_loop(device, case):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     ecfg = EngineConfig(max_len=48)
-    graphed, eager = Engine(cfg, params, ecfg, device=device), Engine(cfg, params, ecfg,
-                                                                       device=device)
-    assert graphed.graphs is not None
-    eager.graphs = None
+    graphed = Engine(cfg, params, ecfg, device=device)
+    assert graphed.runner.captured
     gen = torch.Generator().manual_seed(3)
     steps = 6
     for n, plen in ((3, 30), (8, 24), (1, 20), (3, 18)):
         toks = torch.randint(1, cfg.vocab_size, (n, plen), generator=gen)
+        pairs0 = moe.pair_counts(device).clone()
         with torch.inference_mode():
-            logits, caches, lengths = eager.prefill(toks)
-            want = []
+            logits, caches, lengths = graphed.prefill(toks)
+            want = [logits]
             for _ in range(steps):
-                logits, caches, lengths = eager.decode(caches, lengths, logits.argmax(-1))
+                logits, caches, lengths = graphed.decode(caches, lengths, logits.argmax(-1))
                 want.append(logits.clone())
-            g = graphed.graphs
-            st = g.step_for(n)
+            pairs = (moe.pair_counts(device) - pairs0).tolist()
+            ref = torch.stack([w.argmax(-1) for w in want[:steps]], 1).cpu().numpy()
+            r = graphed.runner
+            st = r.step_for(n)
             logits, _, lengths = graphed.prefill(toks, out=st.caches)
-            g.start(st, logits, lengths)
+            r.start(st, logits, lengths)
             got = []
             for _ in range(steps):
-                g.replay(st)
-                got.append(st.logits.clone())
-        for i, (w, x) in enumerate(zip(want, got)):
+                got.append(r.replay(st).clone())
+        for i, (w, x) in enumerate(zip(want[1:], got)):
             assert torch.equal(w, x), (n, plen, i, (w - x).abs().max().item())
         k1, k2 = fa_k.launches, dec_k.launches
         out = graphed.generate(toks, steps)
@@ -749,14 +751,15 @@ def test_decode_graph_replays_equal_the_eager_loop(device, case):
         assert sum(graphed.last_stats["syncs"].values()) == 3
         assert (fa_k.launches - k1, dec_k.launches - k2) == (cfg.num_layers,
                                                              cfg.num_layers * steps)
-        assert (out == eager.generate(toks, steps)).all()
-        assert eager.last_stats["graph_steps"] == 0
-        if cfg.moe is not None:     # the replays count their pairs as the eager loop
-            assert graphed.last_stats["moe_pairs"] == eager.last_stats["moe_pairs"]
-            assert graphed.last_stats["moe_pairs"]["decode"]["routed"] == (
+        assert (out == ref).all()
+        if cfg.moe is not None:     # the replays count their pairs as the per-step API
+            got_pairs = graphed.last_stats["moe_pairs"]
+            assert [got_pairs["prefill"][k] + got_pairs["decode"][k]
+                    for k in ("routed", "held", "dropped")] == pairs
+            assert got_pairs["decode"]["routed"] == (
                 n * cfg.moe.top_k * cfg.num_layers * steps)
-    assert sorted(graphed.graphs.steps) == [1, 3, 8]
-    del graphed, g, st, logits, caches, lengths, want, got, w, x
+    assert sorted(graphed.runner.steps) == [1, 3, 8]
+    del graphed, r, st, logits, caches, lengths, want, got, w, x
     torch.cuda.empty_cache()
     # what stays is cuBLAS's workspace for the capture stream, once a process
     assert 0 <= torch.cuda.memory_allocated() - base <= 64 << 20
@@ -769,7 +772,7 @@ def test_decode_graph_replays_equal_the_eager_loop(device, case):
     calls = collections.Counter()
     with cs["recording_calls"](calls):
         got = again.generate(toks, steps)
-    assert (got == eager.generate(toks, steps)).all()
+    assert (got == ref).all()
     assert again.last_stats["graph_captures"] == 1
     per_entry = collections.Counter()
     for (name, _, _), n in calls.items():

@@ -1,7 +1,8 @@
 """MLA (DeepSeek-V3's multi-head latent attention) on the CPU, port against
 the JAX package on the same numpy-made inputs and weights: the dense path
 (train / prefill), the weight-absorbed decode with the cache written at
-``lengths`` (the last slot included), and ``pad_caches``; then the absorbed
+``lengths`` (the last slot included), and the engine's prefill writing its
+latents into decode caches as the JAX engine pads them; then the absorbed
 decode against the dense path on the port alone, the deepseek smoke engine
 against the JAX engine, and the depth cut that leaves a group of zero
 units. Tolerances are the reference's own: 5e-5 in fp32, 2e-2 in bf16."""
@@ -14,14 +15,13 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import attention as jattn
 from repro.serving.engine import Engine as JaxEngine
 from repro.serving.engine import EngineConfig as JaxEngineConfig
-from repro.serving.engine import pad_caches as jax_pad_caches
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.variants import VariantPool
 from repro_torch.models import attention as attn
 from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import params_from_jax
-from repro_torch.serving.engine import Engine, EngineConfig, pad_caches
+from repro_torch.serving.engine import Engine, EngineConfig
 
 from _torch_util import as_np, jax_form, numpy_params, to_jax, to_torch, tree_to_jax
 
@@ -131,32 +131,27 @@ def test_mla_absorbed_decode_equals_dense_last_position():
                                atol=5e-5 * max(1.0, scale), rtol=5e-5)
 
 
-def _raw_mla_caches(cfg, b, s, seed):
-    rng = np.random.default_rng(seed)
-    m = cfg.mla
-    return {g.name: {"sub0": (rng.standard_normal((g.n_units, b, s, m.kv_lora_rank)),
-                              rng.standard_normal((g.n_units, b, s, m.qk_rope_head_dim)))}
-            for g in tfm.layer_plan(cfg)}
-
-
 @pytest.mark.parametrize("s,max_len", [(7, 16), (16, 16)])
-def test_pad_caches_mla_matches_jax(s, max_len):
-    """Axis 2 of the stacked (L, B, S, r) latent and (L, B, S, rope) key is
-    zero-padded to ``max_len``, as the JAX engine pads it."""
+def test_prefill_mla_caches_match_jax_engine(s, max_len):
+    """The engine's prefill writes each group's stacked (L, B, S, r) latent
+    and (L, B, S, rope) key into decode caches of ``max_len`` slots: the
+    JAX engine's prefill caches (its ``pad_caches`` zero-pads axis 2), the
+    slots past the prompt zero."""
     cfg, jcfg = _cfgs(False)
-    raw = _raw_mla_caches(cfg, 2, s, 7)
-    got = pad_caches(cfg, {g: {k: attn.MLACache(*(to_torch(a) for a in v))
-                               for k, v in u.items()} for g, u in raw.items()},
-                     max_len)
-    want = jax_pad_caches(jcfg, {g: {k: jattn.MLACache(*(to_jax(a) for a in v))
-                                     for k, v in u.items()} for g, u in raw.items()},
-                          s, max_len)
-    for g in raw:
-        c, w = got[g]["sub0"], want[g]["sub0"]
-        assert isinstance(c, attn.MLACache)
-        assert c.latent.shape[2] == c.k_rope.shape[2] == max_len
-        np.testing.assert_array_equal(as_np(c.latent), as_np(w.latent))
-        np.testing.assert_array_equal(as_np(c.k_rope), as_np(w.k_rope))
+    tree = numpy_params(cfg, seed=7)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, s))
+    jeng = JaxEngine(jcfg, tree_to_jax(tree), JaxEngineConfig(max_len=max_len))
+    eng = Engine(cfg, params_from_jax(cfg, tree, device="cpu"),
+                 EngineConfig(max_len=max_len), device="cpu")
+    _, want, _ = jeng.prefill(jnp.asarray(toks, jnp.int32))
+    _, got, _ = eng.prefill(toks)
+    for g in tfm.layer_plan(cfg):
+        c, w = got[g.name]["sub0"], want[g.name]["sub0"]
+        assert isinstance(c, attn.MLACache) and isinstance(w, jattn.MLACache)
+        for a, b in zip(c, w):
+            assert a.shape == (g.n_units, 2, max_len, a.shape[3]) == b.shape
+            np.testing.assert_allclose(as_np(a), as_np(b), atol=5e-5, rtol=5e-5)
+            assert float(a[:, :, s:].abs().sum()) == 0.0 == float(np.abs(b[:, :, s:]).sum())
 
 
 @pytest.mark.parametrize("use_kernels", [False, True], ids=["einsum", "kernels"])

@@ -135,34 +135,47 @@ def test_pad_caches_ring_slot_invariant(S, w):
     assert float(lin.k[:, :, S:].abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("arch,scaled", [
-    ("phi4-mini-3.8b", {}), ("gemma2-2b", {"sliding_window": 8}),
-    ("mixtral-8x7b", {}), ("jamba-1.5-large-398b", {})])
-def test_prefill_writes_gqa_kv_into_decode_caches(arch, scaled):
-    """The engine's prefill hands back every GQA layer's K/V in a decode
-    cache of ``max_len`` slots (the window's ring where it has one), equal
-    to the model's raw prompt-length K/V placed into zeros; Mamba states
-    come back as the model made them."""
+@pytest.mark.parametrize("arch,scaled,mixers", [
+    ("phi4-mini-3.8b", {}, {"gqa"}), ("gemma2-2b", {"sliding_window": 8}, {"gqa"}),
+    ("mixtral-8x7b", {}, {"gqa"}), ("jamba-1.5-large-398b", {}, {"gqa", "mamba"}),
+    ("deepseek-v3-671b", {}, {"mla"}), ("rwkv6-1.6b", {}, {"rwkv"})])
+def test_prefill_writes_gqa_kv_into_decode_caches(arch, scaled, mixers):
+    """The engine's prefill writes every layer's cache into the decode cache
+    tree it is handed, and each tensor it hands back is the one handed in:
+    GQA K/V in ``max_len`` slots (the window's ring where it has one), MLA
+    latents and rope keys in their first S slots, Mamba and RWKV states
+    whole, each equal to the model's raw prompt-length cache placed into
+    the tree; slots past the prompt keep what they held."""
     cfg = get_smoke_config(arch).scaled(dtype="float32", **scaled)
     params = init_params(cfg, 0, device="cpu")
-    max_len, s = 20, 13
+    max_len, s, held = 20, 13, 7.0
     eng = Engine(cfg, params, EngineConfig(max_len=max_len), device="cpu")
     toks = np.random.default_rng(2).integers(1, cfg.vocab_size, size=(2, s))
-    _, caches, _ = eng.prefill(toks)
+    tree = tfm.init_cache(cfg, 2, max_len, torch.float32, device="cpu")
+    for unit in tree.values():
+        for c in unit.values():
+            for t in c:
+                t.fill_(held)
+    _, caches, _ = eng.prefill(toks, out=tree)
     with torch.inference_mode():
         _, raw = model_lib.prefill(cfg, params, torch.from_numpy(toks), use_kernels=True)
     kinds = set()
     for g in tfm.layer_plan(cfg):
         for i, sl in enumerate(g.pattern):
             got, want = caches[g.name][f"sub{i}"], raw[g.name][f"sub{i}"]
+            assert type(got) is type(want)
+            assert all(a is b for a, b in zip(got, tree[g.name][f"sub{i}"]))
             kinds.add(sl.mixer)
             if sl.mixer == "gqa":
                 window = layer_window(cfg, sl.is_global)
                 slots = max_len if window is None else min(window, max_len)
                 assert got.k.shape == want.k.shape[:2] + (slots,) + want.k.shape[3:]
-                want = [place_kv(t, t.new_zeros(got.k.shape), s, window) for t in want]
+                want = [place_kv(t, torch.full_like(got.k, held), s, window) for t in want]
+            elif sl.mixer == "mla":
+                want = [torch.cat([t, torch.full(t.shape[:2] + (max_len - s,) + t.shape[3:],
+                                                 held)], dim=2) for t in want]
             assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert "gqa" in kinds
+    assert kinds == mixers
 
 
 GENERATE_CASES = [
@@ -199,8 +212,9 @@ def test_generate_matches_jax_engine(arch, scaled, s, steps, use_kernels):
 
 @pytest.mark.parametrize("use_kernels", [False, True], ids=["einsum", "kernels"])
 def test_rwkv6_decode_writes_state_in_place(use_kernels):
-    """The RWKV state is fixed-size: ``pad_caches`` passes it through, and a
-    decode step copies the new state into the very tensors it was given."""
+    """The RWKV state is fixed-size: the prefill writes it into the decode
+    cache tree whole, and a decode step copies the new state into the very
+    tensors it was given."""
     from repro_torch.models.ssm import RWKVState
     cfg, toks, _ = _setup("rwkv6-1.6b", 27, 2, 9)
     eng = Engine(cfg, init_params(cfg, 5, device="cpu"),
@@ -223,9 +237,10 @@ def test_rwkv6_decode_writes_state_in_place(use_kernels):
 
 @pytest.mark.parametrize("use_kernels", [False, True], ids=["einsum", "kernels"])
 def test_jamba_decode_writes_mamba_state_in_place(use_kernels):
-    """A Mamba state is fixed-size: ``pad_caches`` passes it through, and a
-    decode step copies the new state into the very tensors it was given;
-    the attention layer's cache is padded to ``max_len``."""
+    """A Mamba state is fixed-size: the prefill writes it into the decode
+    cache tree whole, and a decode step copies the new state into the very
+    tensors it was given; the attention layer's cache has ``max_len``
+    slots."""
     from repro_torch.models.ssm import MambaState
     cfg, toks, _ = _setup("jamba-1.5-large-398b", 29, 2, 9)
     eng = Engine(cfg, init_params(cfg, 7, device="cpu"),
