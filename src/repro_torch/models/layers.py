@@ -127,12 +127,18 @@ def yarn_correction_range(dim: int, theta: float, scaling) -> Tuple[int, int]:
     return max(low, 0), min(high, dim - 1)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def yarn_freqs(head_dim: int, theta: float, scaling, device) -> torch.Tensor:
     """YaRN's inverse frequencies (``DeepseekV3YarnRotaryEmbedding``):
     ``freq / factor`` past the ramp, ``freq`` before it, mixed linearly along
-    it. Cached a device: the table is built once, not at every layer (and
-    outside inference mode, so that training may use it too)."""
+    it. Cached a device, and never dropped: the table is built once, not at
+    every layer (and outside inference mode, so that training may use it
+    too), by the first prefill, before any decode step is captured into a
+    CUDA graph. A capture records kernels without running them, so a table
+    first built inside one would hold nothing: that raises."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("YaRN's frequency table is built outside a CUDA graph "
+                           "capture: run a prefill on the device first")
     low, high = yarn_correction_range(head_dim, theta, scaling)
     with torch.inference_mode(False):
         extra = rope_freqs(head_dim, theta, device)

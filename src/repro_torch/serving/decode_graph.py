@@ -10,15 +10,18 @@ lengths and finite flag into the step's buffers, and each
 and the caches and writes the next token, the flag (``&=``) and the lengths
 + 1 back in place.
 
-Where :func:`graph_route` allows it (on the card, every sublayer a GQA mixer
-with a dense or MoE MLP: no host sync in the step), a greedy step is
-captured into a CUDA graph once for each batch size and replayed at every
+Where :func:`graph_route` allows it (on the card, every sublayer a GQA or
+MLA mixer with a dense or MoE MLP: no host sync in the step), a greedy step
+is captured into a CUDA graph once for each batch size and replayed at every
 step: the same kernels in the same order at the same precision, K2 included,
-with the host's launch work gone. The MoE dispatch has no host sync, and
-adds its pair counts to a tensor on the device (``moe.pair_counts``), so a
-replay counts them too. Elsewhere (MLA, Mamba, RWKV, the CPU), and for
-sampled generation, which draws each token from the caller's generator by
-``multinomial``, the same step runs eagerly on the same buffers.
+with the host's launch work gone. MLA's absorbed decode writes its latent
+and rope-key rows at ``lengths`` on the device, and YaRN's frequency table
+is built by the prefill, before any capture. The MoE dispatch has no host
+sync, and adds its pair counts to a tensor on the device
+(``moe.pair_counts``), so a replay counts them too. Elsewhere (Mamba, RWKV,
+the CPU), and for sampled generation, which draws each token from the
+caller's generator by ``multinomial``, the same step runs eagerly on the
+same buffers.
 
 Memory. A :class:`DecodeStore` holds the decode caches of one device: one
 ``(layers, batch, ...)`` tensor for each tensor of a cache tree, keyed by
@@ -74,11 +77,11 @@ _CALL_COUNTERS: List[collections.Counter] = []
 
 def graph_route(cfg: ModelConfig, device: torch.device) -> bool:
     """Whether greedy decode steps of ``cfg`` on ``device`` replay from CUDA
-    graphs: on the card, and only where every sublayer is a GQA mixer with a
-    dense or MoE MLP (no host sync in the step). MLA, Mamba and RWKV run
+    graphs: on the card, and only where every sublayer is a GQA or MLA mixer
+    with a dense or MoE MLP (no host sync in the step). Mamba and RWKV run
     their steps eagerly."""
     return device.type == "cuda" and all(
-        sl.mixer == "gqa" and sl.mlp in ("dense", "moe")
+        sl.mixer in ("gqa", "mla") and sl.mlp in ("dense", "moe")
         for g in tfm.layer_plan(cfg) for sl in g.pattern)
 
 

@@ -18,8 +18,9 @@ Cache notes:
     (``donate_argnums``) of the JAX engine.
   * ``generate`` runs one decode loop for every model, over the steps of
     ``serving.decode_graph``: each replayed from a CUDA graph where
-    ``decode_graph.graph_route`` allows it, run eagerly on the same buffers
-    elsewhere.
+    ``decode_graph.graph_route`` allows it (on the card, GQA and MLA models
+    with dense or MoE MLPs), run eagerly on the same buffers elsewhere
+    (Mamba, RWKV, the CPU, sampled generation).
 
 Device rule: ``device=None`` means the card and raises when there is none;
 the CPU is used only when the caller passes ``device="cpu"``.
@@ -52,7 +53,8 @@ class EngineConfig:
 class Engine:
     """One model variant on one device (None: the card). ``runner`` holds its
     decode steps, each replayed from a CUDA graph where
-    :func:`decode_graph.graph_route` allows it and run eagerly elsewhere."""
+    :func:`decode_graph.graph_route` allows it (GQA and MLA models on the
+    card) and run eagerly elsewhere."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: Optional[EngineConfig] = None,
                  device=None):

@@ -6,11 +6,11 @@ ring's wrap, mixtral's GQA + MoE with its pairs counted by phase, deepseek's
 MLA + MoE, jamba's Mamba + GQA + MoE, rwkv6), batch sizes 1, 3 and 8 on one
 shared store whose stale slots lie past the later batches' lengths; sampled
 generation against a per-step ``multinomial``; the store's layout against
-``init_cache`` and ``abstract_cache``; the rule that captures only GQA models'
-greedy steps, on the card; the ``graph_steps`` / ``graph_captures`` stats with
-a stand-in for the CUDA graph (captures that another engine causes included);
-and that the store goes with the last engine. The replay itself is held on the
-card in ``test_torch_cuda.py``."""
+``init_cache`` and ``abstract_cache``; the rule that captures only GQA and MLA
+models' greedy steps, on the card; the ``graph_steps`` / ``graph_captures``
+stats with a stand-in for the CUDA graph (captures that another engine causes
+included); and that the store goes with the last engine. The replay itself is
+held on the card in ``test_torch_cuda.py``."""
 import gc
 import weakref
 
@@ -265,12 +265,12 @@ def test_the_store_goes_with_the_last_engine():
 
 
 ROUTED = ["phi4-mini-3.8b", "qwen3-32b", "gemma2-2b", "llava-next-mistral-7b",
-          "musicgen-medium", "mixtral-8x7b"]
-EAGER = ["deepseek-v3-671b", "jamba-1.5-large-398b", "rwkv6-1.6b"]
+          "musicgen-medium", "mixtral-8x7b", "deepseek-v3-671b"]
+EAGER = ["jamba-1.5-large-398b", "rwkv6-1.6b"]
 
 
 @pytest.mark.parametrize("arch", ROUTED + EAGER)
-def test_graph_route_engages_for_gqa_with_dense_or_moe_mlps_on_the_card_only(arch):
+def test_graph_route_engages_for_gqa_or_mla_with_dense_or_moe_mlps_on_the_card_only(arch):
     cfg = get_smoke_config(arch)
     assert decode_graph.graph_route(cfg, torch.device("cuda")) == (arch in ROUTED)
     assert not decode_graph.graph_route(cfg, CPU)
@@ -279,3 +279,15 @@ def test_graph_route_engages_for_gqa_with_dense_or_moe_mlps_on_the_card_only(arc
     eng = Engine(cfg, init_params(cfg, 0, device="cpu"), EngineConfig(max_len=8),
                  device="cpu")
     assert not eng.runner.captured
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("dense_layers", [1, 0], ids=["dense-prelude", "moe-only"])
+def test_graph_route_takes_mla_with_a_dense_prelude_on_the_card_only(dense_layers, device):
+    """deepseek with its dense prelude (``mla`` + ``dense`` sublayers before
+    the ``mla`` + ``moe`` ones) and without it (the benchmark's stage of MoE
+    layers) replays on the card; the CPU runs both eagerly."""
+    cfg = get_smoke_config("deepseek-v3-671b").scaled(num_dense_layers=dense_layers)
+    plan = {(sl.mixer, sl.mlp) for g in tfm.layer_plan(cfg) for sl in g.pattern}
+    assert plan == ({("mla", "dense"), ("mla", "moe")} if dense_layers else {("mla", "moe")})
+    assert decode_graph.graph_route(cfg, torch.device(device)) == (device == "cuda")
