@@ -11,6 +11,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+RWKV_DECAY_LORA = 64                  # RWKV-6's decay LoRA rank (Finch below n_embd 4096)
 
 @dataclass(frozen=True)
 class MoEConfig:
@@ -87,12 +88,21 @@ class RopeScaling:
 
 @dataclass(frozen=True)
 class SSMConfig:
+    """A Mamba or an RWKV-6 mixer. RWKV-6 as published (Finch, arXiv:2404.05892
+    section 4) interpolates each token with the one before by a data-dependent
+    amount, a LoRA of rank ``token_shift_lora`` on top of the static mixes
+    ("ddlerp"), and normalises the WKV output per head (GroupNorm with eps
+    ``head_norm_eps``). ``token_shift_lora`` 0 keeps the static mixes alone and
+    ``head_norm_eps`` 0 one LayerNorm over all channels with the model's
+    ``norm_eps``: the JAX package's form."""
     kind: str = "mamba"              # "mamba" | "rwkv6"
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
     # rwkv6
     wkv_head_dim: int = 64
+    token_shift_lora: int = 0        # Finch: 32 below n_embd 4096
+    head_norm_eps: float = 0.0       # Finch: 1e-5 x 8**2
 
 
 @dataclass(frozen=True)
@@ -138,6 +148,8 @@ class ModelConfig:
     # --- heads / embeddings ---
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    norm_kind: str = "rms"           # rms | layer (LayerNorm with a bias; RWKV only)
+    embed_norm: bool = False         # a norm right after the embedding (RWKV's ln0)
     post_norms: bool = False         # gemma2 sandwich norms
     zero_centered_norm: bool = False  # gemma-style (1 + scale) RMSNorm
     mtp_depth: int = 0               # deepseek multi-token-prediction depth
@@ -159,6 +171,11 @@ class ModelConfig:
                 object.__setattr__(self, name, kind(**v))
         if self.rope_scaling is not None and self.attention_kind != "mla":
             raise ValueError("rope_scaling (YaRN) is implemented for MLA only")
+        if self.norm_kind not in ("rms", "layer"):
+            raise ValueError(f"unknown norm_kind {self.norm_kind!r}")
+        if (self.norm_kind == "layer" or self.embed_norm) and self.attention_kind != "none":
+            raise ValueError("LayerNorm blocks and an embedding norm are implemented "
+                             "for RWKV only")
 
     # ------------------------------------------------------------------
     @property
@@ -219,7 +236,18 @@ class ModelConfig:
         for i in range(self.num_layers):
             total += self._layer_params(i, active_only)
         total += d  # final norm
+        if self._rwkv_published:      # the final norm's bias; the embedding norm
+            per_norm = 2 * d if self.norm_kind == "layer" else d
+            total += per_norm - d + (per_norm if self.embed_norm else 0)
         return total
+
+    @property
+    def _rwkv_published(self) -> bool:
+        """An RWKV-6 model in Finch's form, whose count is exact: the sum over
+        the parameter tree. The JAX package's form keeps its approximate
+        count, which both packages share."""
+        return (self.ssm is not None and self.ssm.kind == "rwkv6"
+                and self.ssm.token_shift_lora > 0)
 
     def _attn_params(self) -> int:
         d = self.d_model
@@ -248,6 +276,15 @@ class ModelConfig:
             p += d_in * s.d_state + d_in           # A_log, D
             p += d_in * d                          # out_proj
             return p
+        if self._rwkv_published:
+            # time mix: maa_x and the 5 static mixes, the token-shift LoRA,
+            # r/k/v/g/o, the decay base and LoRA, the bonus, the GroupNorm's
+            # scale and bias; channel mix: its 2 mixes, key, value and
+            # receptance; the two block norms' scales and biases
+            r = s.token_shift_lora
+            p = 6 * d + 2 * 5 * r * d + 5 * d * d + d + 2 * RWKV_DECAY_LORA * d + 3 * d
+            p += 2 * d + 2 * d * self.d_ff + d * d
+            return p + (4 if self.norm_kind == "layer" else 2) * d
         # rwkv6 time-mix + channel-mix
         p = 4 * d * d + d * d                      # r,k,v,g,o  (approx)
         p += 2 * d * self.d_ff                     # channel mix
@@ -255,6 +292,8 @@ class ModelConfig:
 
     def _layer_params(self, i: int, active_only: bool) -> int:
         d = self.d_model
+        if self._rwkv_published:      # the block whole, counted once
+            return self._ssm_params()
         p = 2 * d  # two norms
         if self.attention_kind == "none" or not self.layer_is_attn(i):
             p += self._ssm_params()

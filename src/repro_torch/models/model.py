@@ -50,9 +50,13 @@ def _backbone(cfg: ModelConfig, params, x, positions, caches, lengths, *,
               mode: str, use_kernels: bool, remat: bool = False,
               remat_policy: str = "nothing"):
     """Returns (x, caches, aux): ``aux`` sums the MoE load-balance terms of
-    mode 'dense' (0 without MoE layers and in the serving modes)."""
+    mode 'dense' (0 without MoE layers and in the serving modes). The
+    embedding norm (RWKV's ln0) opens it where the configuration has one, the
+    final norm closes it."""
     new_caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.embed_norm:
+        x = tfm.apply_norm(cfg, params, "embed_norm", x)
     for g in tfm.layer_plan(cfg):
         c = caches[g.name] if caches is not None else None
         x, c_out, aux = tfm.group_apply(cfg, g, params[g.name], x, positions, c,
@@ -63,8 +67,7 @@ def _backbone(cfg: ModelConfig, params, x, positions, caches, lengths, *,
         aux_total = aux_total + aux
     if mode == "decode":
         new_caches = caches      # written in place: the same tree goes back
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
-                 zero_centered=cfg.zero_centered_norm)
+    x = tfm.apply_norm(cfg, params, "final_norm", x)
     return x, new_caches, aux_total
 
 

@@ -29,7 +29,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamSpec, embed_param_specs,
-                                       init_from_specs, mlp_apply,
+                                       init_from_specs, layer_norm, mlp_apply,
                                        mlp_param_specs, resolve_device,
                                        resolve_dtype, rms_norm)
 
@@ -91,14 +91,22 @@ def _norm_spec(cfg) -> ParamSpec:
     return ParamSpec((cfg.d_model,), ("d_model",), init=init)
 
 
+def norm_specs(cfg, name: str) -> Dict[str, ParamSpec]:
+    """The parameters of norm ``name``: its scale, and ``<name>_bias`` for a
+    LayerNorm (``cfg.norm_kind == "layer"``)."""
+    specs = {name: _norm_spec(cfg)}
+    if cfg.norm_kind == "layer":
+        specs[name + "_bias"] = ParamSpec((cfg.d_model,), ("d_model",), init="zeros")
+    return specs
+
+
 def sublayer_param_specs(cfg: ModelConfig, sl: SubLayer) -> Dict[str, Any]:
+    if sl.mixer == "rwkv":
+        return {**norm_specs(cfg, "norm_mixer"), "rwkv": ssm.rwkv_param_specs(cfg),
+                **norm_specs(cfg, "norm_mlp")}        # norm_mlp: the channel mix's
     specs: Dict[str, Any] = {"norm_mixer": _norm_spec(cfg)}
     if cfg.post_norms:
         specs["norm_mixer_post"] = _norm_spec(cfg)
-    if sl.mixer == "rwkv":
-        specs["rwkv"] = ssm.rwkv_param_specs(cfg)
-        specs["norm_mlp"] = _norm_spec(cfg)   # channel-mix norm
-        return specs
     if sl.mixer == "mamba":
         specs["mamba"] = ssm.mamba_param_specs(cfg)
     elif sl.mixer == "mla":
@@ -129,7 +137,9 @@ def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     multi-token-prediction head: one dense-MLP block of the model's mixer)
     is not stacked."""
     specs: Dict[str, Any] = {"embed": embed_param_specs(cfg),
-                             "final_norm": _norm_spec(cfg)}
+                             **norm_specs(cfg, "final_norm")}
+    if cfg.embed_norm:
+        specs.update(norm_specs(cfg, "embed_norm"))
     for g in layer_plan(cfg):
         specs[g.name] = unit_param_specs(cfg, g)
     if cfg.mtp_depth > 0:
@@ -208,6 +218,14 @@ def _norm(cfg, scale, x):
     return rms_norm(x, scale, cfg.norm_eps, zero_centered=cfg.zero_centered_norm)
 
 
+def apply_norm(cfg: ModelConfig, p, name: str, x):
+    """Norm ``name`` of the parameters ``p`` on ``x``: RMSNorm, or a
+    LayerNorm with its bias ``<name>_bias`` (``cfg.norm_kind == "layer"``)."""
+    if cfg.norm_kind == "layer":
+        return layer_norm(x, p[name].float(), p[name + "_bias"].float(), cfg.norm_eps)
+    return _norm(cfg, p[name], x)
+
+
 def sublayer_apply(cfg: ModelConfig, sl: SubLayer, p, x, positions,
                    cache, lengths, *, mode: str, use_kernels: bool):
     """mode: 'dense' (no cache out), 'prefill', 'decode'.
@@ -225,13 +243,13 @@ def sublayer_apply(cfg: ModelConfig, sl: SubLayer, p, x, positions,
 
 
 def _rwkv_sublayer(cfg, sl, p, x, cache, *, mode: str, use_kernels: bool):
-    h = _norm(cfg, p["norm_mixer"], x)
+    h = apply_norm(cfg, p, "norm_mixer", x)
     state = cache if mode == "decode" else init_sublayer_cache(
         cfg, sl, x.shape[0], x.shape[1], x.dtype, x.device)
     out, new_wkv, new_shift = ssm.rwkv_time_mix(
         cfg, p["rwkv"], h, state, use_kernel=use_kernels and mode != "decode")
     x = x + out
-    h2 = _norm(cfg, p["norm_mlp"], x)
+    h2 = apply_norm(cfg, p, "norm_mlp", x)
     cm_out, new_shift_c = ssm.rwkv_channel_mix(cfg, p["rwkv"], h2, state)
     x = x + cm_out
     return x, ssm.RWKVState(wkv=new_wkv, shift_t=new_shift, shift_c=new_shift_c), None

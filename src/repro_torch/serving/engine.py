@@ -39,6 +39,7 @@ from repro_torch.core import trace
 from repro_torch.core.batching import BatchFormation
 from repro_torch.models import model as model_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import resolve_device, resolve_dtype
 from repro_torch.serving import decode_graph
@@ -122,11 +123,16 @@ class Engine:
         (``prefill``, ``decode``), the (token, expert) pairs routed, routed to
         the experts held, and dropped of those at capacity (``routed``,
         ``held``, ``dropped``), from device copies of ``moe.pair_counts``
-        brought back with the finite flag."""
+        brought back with the finite flag. A model with RWKV layers adds
+        ``wkv_tokens``: the token-layers whose recurrence ran through K4
+        (``kernel``) and through the one-step update (``step``), counted on
+        the host from shapes (``ssm.wkv_tokens``)."""
         clock = _Clock(self.device)
         counts0, wait0 = dict(trace.counts), trace.wait_s()
         pairs = moe_lib.pair_counts(self.device) if self.cfg.moe is not None else None
         snaps = [pairs.clone()] if pairs is not None else []
+        rwkv = self.cfg.ssm is not None and self.cfg.ssm.kind == "rwkv6"
+        wkv0 = dict(ssm.wkv_tokens) if rwkv else None
         runner = self.runner
         replays0, captures0 = runner.replays, runner.store.captures
         host0 = time.perf_counter()
@@ -164,6 +170,8 @@ class Engine:
         if pairs is not None:
             self.last_stats["moe_pairs"] = {"prefill": _pairs(counts[0:3], counts[3:6]),
                                             "decode": _pairs(counts[3:6], counts[6:9])}
+        if wkv0 is not None:
+            self.last_stats["wkv_tokens"] = {k: n - wkv0[k] for k, n in ssm.wkv_tokens.items()}
         return toks
 
 

@@ -62,20 +62,28 @@ def tree_to_numpy(tree):
 
 
 # the port's fields that the JAX package lacks, at the values that reproduce it
-PORT_ONLY = {"rope_scaling": None}
+PORT_ONLY = {"rope_scaling": None, "norm_kind": "rms", "embed_norm": False}
 PORT_ONLY_MOE = {"scoring": "softmax", "n_group": 1, "topk_group": 1, "num_routed": 0}
+PORT_ONLY_SSM = {"token_shift_lora": 0, "head_norm_eps": 0.0}
 
 
 def jax_form(cfg):
     """``cfg`` as the JAX package runs it: a softmax top-k router over the
-    experts held and plain RoPE. The port's deepseek-v3 takes the published
-    sigmoid group-limited router and YaRN, which the JAX package lacks; every
-    other configuration comes back as it is."""
+    experts held, plain RoPE, and RWKV-6 with static token-shift mixes, one
+    LayerNorm over the WKV output and bias-free RMSNorm blocks. The port's
+    deepseek-v3 takes the published sigmoid group-limited router and YaRN,
+    and its rwkv6-1.6b Finch's data-dependent token shift, per-head
+    GroupNorm and LayerNorm blocks (ln0 included), which the JAX package
+    lacks; every other configuration comes back as it is."""
     if cfg.moe is not None and (cfg.moe.scoring, cfg.moe.n_group) != ("softmax", 1):
         cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, scoring="softmax", n_group=1,
                                                  topk_group=1))
     if cfg.rope_scaling is not None:
         cfg = cfg.scaled(rope_scaling=None)
+    if cfg.ssm is not None and any(getattr(cfg.ssm, k) != v for k, v in PORT_ONLY_SSM.items()):
+        cfg = cfg.scaled(ssm=dataclasses.replace(cfg.ssm, **PORT_ONLY_SSM))
+    if (cfg.norm_kind, cfg.embed_norm) != ("rms", False):
+        cfg = cfg.scaled(norm_kind="rms", embed_norm=False)
     return cfg
 
 
@@ -89,4 +97,7 @@ def jax_asdict(cfg) -> dict:
     if d["moe"] is not None:
         for k, v in PORT_ONLY_MOE.items():
             assert d["moe"].pop(k) == v, k
+    if d["ssm"] is not None:
+        for k, v in PORT_ONLY_SSM.items():
+            assert d["ssm"].pop(k) == v, k
     return d

@@ -910,3 +910,112 @@ def test_deepseek_decode_step_waits_for_no_host_sync(device, dense_layers):
             torch.cuda.set_sync_debug_mode("default")
     assert caches is st.caches and lengths.tolist() == [25] * 8
     assert torch.isfinite(logits).all()
+
+
+# ----------------------------------------------------------------------
+# rwkv6-1.6b as published (Finch) at every width, 2 of its 24 layers, against
+# the plain reference ``torch_ref_rwkv6`` on the card
+RWKV_PROMPT, RWKV_STEPS = 256, 6
+# the served tokens' gap (the reference's best logit less its logit of the
+# token the program served) of the bf16 program through 2 layers
+RWKV_BF16_GAP = 0.2
+
+
+def _rwkv_case(dtype, seed):
+    """The published configuration cut to 2 layers, weights from the port's
+    init with noise on every leaf it makes constant (norm scales and biases,
+    the mixes, the decay base, the bonus), so that each part weighs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("rwkv6-1.6b").scaled(num_layers=2, dtype=dtype)
+    params = init_params(cfg, seed, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def perturb(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                perturb(v)
+            elif v.std() == 0:
+                v.add_(0.1 * torch.randn(v.shape, generator=gen, device="cuda"))
+    perturb(params)
+    if dtype == "bfloat16":
+        params = _tree_cast(params, torch.bfloat16)
+    toks = torch.randint(1, cfg.vocab_size, (4, RWKV_PROMPT + RWKV_STEPS),
+                         generator=torch.Generator().manual_seed(seed + 2))
+    return cfg, params, toks
+
+
+def _tree_cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def _rwkv_reference(cfg, params, toks):
+    import dataclasses
+
+    import torch_ref_rwkv6
+    return torch_ref_rwkv6.forward(dataclasses.asdict(cfg), params, toks.cuda())
+
+
+def test_rwkv6_published_prefill_and_decode_vs_reference_fp32(device):
+    """K4's prefill (fp32) and the eager one-step decode through the carried
+    state against the reference's full forward, at positions PROMPT - 1 ..
+    PROMPT + STEPS - 2; fp32 both, the recurrence's tolerance 5e-5 x 4."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, params, toks = _rwkv_case("float32", 11)
+    eng = Engine(cfg, params, EngineConfig(max_len=RWKV_PROMPT + RWKV_STEPS), device=device)
+    before = wkv_k.launches
+    with torch.inference_mode():
+        logits, caches, lengths = eng.prefill(toks[:, :RWKV_PROMPT])
+        got = [logits]
+        for i in range(RWKV_STEPS - 1):
+            logits, caches, lengths = eng.decode(caches, lengths,
+                                                 toks[:, RWKV_PROMPT + i].to(device))
+            got.append(logits)
+    assert wkv_k.launches == before + cfg.num_layers          # one K4 a layer, in prefill
+    want = _rwkv_reference(cfg, params, toks)[:, RWKV_PROMPT - 1:RWKV_PROMPT + RWKV_STEPS - 1]
+    got = torch.stack(got, 1)
+    print(f"rwkv6 fp32 on the card: max |port - reference| {(got - want).abs().max().item():.3e}")
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_rwkv6_published_bf16_served_tokens_gap(device):
+    """The bf16 program's greedy tokens (``Engine.generate``: K4 in bf16, the
+    eager decode) judged as the benchmark judges them: the reference's best
+    logit less its logit of each served token, on the bf16 weights."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, params, toks = _rwkv_case("bfloat16", 12)
+    eng = Engine(cfg, params, EngineConfig(max_len=RWKV_PROMPT + RWKV_STEPS), device=device)
+    served = torch.as_tensor(eng.generate(toks[:, :RWKV_PROMPT].numpy(), RWKV_STEPS),
+                             dtype=torch.long)
+    seq = torch.cat([toks[:, :RWKV_PROMPT], served[:, :-1]], 1)
+    logits = _rwkv_reference(cfg, params, seq)[:, RWKV_PROMPT - 1:]
+    gap = logits.max(-1).values - logits.gather(-1, served.cuda()[..., None])[..., 0]
+    print(f"rwkv6 bf16 on the card: served tokens' gap max {gap.max().item():.4f}, "
+          f"mean {gap.mean().item():.4f}")
+    assert gap.max().item() < RWKV_BF16_GAP
+
+
+def test_rwkv6_profiled_batch_holds_the_rwkv_ranges_and_counts(device):
+    """One batch of prefill and two decode steps under the profiler on the
+    card: each of ``rwkv.time_mix``, ``rwkv.wkv`` and ``rwkv.channel_mix``
+    once a layer and call, K4 once a layer, ``wkv_tokens`` from the shapes
+    and 3 host syncs."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, params, toks = _rwkv_case("bfloat16", 13)
+    eng = Engine(cfg, params, EngineConfig(max_len=RWKV_PROMPT + RWKV_STEPS), device=device)
+    eng.generate(toks[:, :RWKV_PROMPT].numpy(), 2)         # loads the kernels
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = wkv_k.launches
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.generate(toks[:, :RWKV_PROMPT].numpy(), 2)
+    counts = {e.key: e.count for e in prof.key_averages()}
+    for name in ("rwkv.time_mix", "rwkv.wkv", "rwkv.channel_mix"):
+        assert counts.get(name) == 3 * cfg.num_layers, (name, counts.get(name))
+    assert wkv_k.launches == before + cfg.num_layers
+    b, layers = toks.shape[0], cfg.num_layers
+    assert eng.last_stats["wkv_tokens"] == {"kernel": b * RWKV_PROMPT * layers,
+                                            "step": b * 2 * layers}
+    assert sum(eng.last_stats["syncs"].values()) == 3
+    assert eng.last_stats["graph_steps"] == 0

@@ -96,7 +96,7 @@ def test_input_specs_match_jax(arch, shape):
 
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_analytic_roofline_functions_match_jax(arch, shape):
-    jcfg, cfg, sh = jax_get_config(arch), get_config(arch), get_shape(shape)
+    jcfg, cfg, sh = jax_get_config(arch), jax_form(get_config(arch)), get_shape(shape)
     for n_dev in (256, 512):
         args = (sh.seq_len, sh.global_batch, n_dev, sh.kind)
         want = jroof.model_flops(jcfg, sh, n_dev)

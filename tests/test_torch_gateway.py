@@ -18,7 +18,7 @@ import repro.sched as jsched
 from repro.core.requests import InferenceRequest as JaxRequest
 from repro.core.variants import VariantPool as JaxVariantPool
 from repro.roofline.analysis import HBM_BW, PEAK_FLOPS
-from _torch_util import jax_asdict
+from _torch_util import jax_asdict, jax_form
 from repro_torch import configs
 from repro_torch.core import profiling as prof
 from repro_torch.core.cluster import DEFAULT_NODES
@@ -38,7 +38,7 @@ REFERENCE_HW = prof.HardwareSpec(peak_flops=PEAK_FLOPS, hbm_bw=HBM_BW)
 def test_configs_equal(arch, kind):
     get, jget = ((configs.get_config, jconfigs.get_config) if kind == "full"
                  else (configs.get_smoke_config, jconfigs.get_smoke_config))
-    a, b = get(arch), jget(arch)
+    a, b = jax_form(get(arch)), jget(arch)
     assert jax_asdict(a) == dataclasses.asdict(b)
     assert a.param_count() == b.param_count()
     assert a.param_count(active_only=True) == b.param_count(active_only=True)
@@ -55,7 +55,7 @@ def test_registry_and_shapes_equal():
                                   "deepseek-v3-671b", "jamba-1.5-large-398b",
                                   "rwkv6-1.6b"])
 def test_variant_ladder_equal(arch):
-    a = VariantPool(configs.get_config(arch))
+    a = VariantPool(jax_form(configs.get_config(arch)))
     b = JaxVariantPool(jconfigs.get_config(arch))
     assert len(a) == len(b) == 6
     for va, vb in zip(a.variants, b.variants):
@@ -78,7 +78,8 @@ def test_rwkv6_ladder_and_table():
     jnodes = [jprof.NodeProfile(n.name, n.chips, n.capability) for n in DEFAULT_NODES]
     jt = jprof.ProfilingTable(JaxVariantPool(jconfigs.get_config("rwkv6-1.6b")),
                               jnodes, seq_len=512)
-    ref_t = prof.ProfilingTable(pool, nodes, seq_len=512, hw=REFERENCE_HW)
+    ref_t = prof.ProfilingTable(VariantPool(jax_form(cfg)), nodes, seq_len=512,
+                                hw=REFERENCE_HW)
     np.testing.assert_array_equal(ref_t.perf, jt.perf)
 
 
